@@ -1,29 +1,41 @@
 """batchelor_torch: the PyTorch/CUDA port of batchelor_tpu for one NVIDIA H100.
 
-The two Pallas kernels of the JAX package are hand-written CUDA kernels here
+Every Pallas kernel of the JAX package (its two in ``ops/`` and the two probe
+kernels in ``benchmarks/``) has a hand-written CUDA counterpart here
 (``csrc/``, built with nvcc at first use into ``build/``); the rest is plain
 PyTorch. Entry points run on the CUDA device unless called with
 ``device="cpu"``, where each kernel wrapper uses its plain PyTorch version.
 
-Ported so far: the reduced-coordinate merge (``reduced_mnn``) and what it
-runs — kNN search, MNN detection and the correction math.
+Ported so far: ``fast_mnn`` from gene space (cosine normalization,
+``multi_batch_pca``, the merge), the reduced-coordinate merge
+(``reduced_mnn``) and what they run: kNN search, MNN detection and the
+correction math.
 """
-from .convert import from_numpy, result_to_numpy
-from .correct.fast_mnn import MergeStepInfo, MNNResult, reduced_mnn
+from .convert import from_numpy, pca_to_numpy, result_to_numpy
+from .correct.fast_mnn import MergeStepInfo, MNNResult, fast_mnn, reduced_mnn
 from .device import resolve_device
+from .ops.cosine_norm import cosine_norm
 from .ops.knn import KNNResult, query_knn
+from .ops.lowrank import LowRankOp
 from .ops.mutual_nn import MNNPairs, find_mutual_nn, restricted_mnn
+from .ops.pca import MultiBatchPCAResult, multi_batch_pca
 from .utils.telemetry import MetricsRecorder, get_recorder, set_recorder, trace_span
 
 __all__ = [
     "KNNResult",
+    "LowRankOp",
     "MNNPairs",
     "MNNResult",
     "MergeStepInfo",
     "MetricsRecorder",
+    "MultiBatchPCAResult",
+    "cosine_norm",
+    "fast_mnn",
     "find_mutual_nn",
     "from_numpy",
     "get_recorder",
+    "multi_batch_pca",
+    "pca_to_numpy",
     "query_knn",
     "reduced_mnn",
     "resolve_device",

@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("chunk_max", "topk_rows")
+KERNELS = ("chunk_max", "topk_rows", "rescore_chunks", "pass1_norm")
 
 _lock = threading.Lock()
 _libs: dict = {}

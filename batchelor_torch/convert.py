@@ -3,8 +3,8 @@
 The system has no weights: its state is the batches, the restrictions and
 the merge results. ``from_numpy`` puts arrays as the JAX package takes or
 returns them (via ``np.asarray``) on a device as tensors;
-``result_to_numpy`` gives the port's ``MNNResult`` back as numpy for a
-side-by-side comparison with the JAX package's result.
+``result_to_numpy`` and ``pca_to_numpy`` give the port's results back as
+numpy for a side-by-side comparison with the JAX package's results.
 """
 from __future__ import annotations
 
@@ -14,8 +14,9 @@ import numpy as np
 
 from .correct.fast_mnn import MNNResult
 from .device import DeviceLike, as_tensor, resolve_device
+from .ops.pca import MultiBatchPCAResult
 
-__all__ = ["from_numpy", "result_to_numpy"]
+__all__ = ["from_numpy", "result_to_numpy", "pca_to_numpy"]
 
 
 def from_numpy(x, device: DeviceLike = None, dtype=None):
@@ -29,6 +30,19 @@ def from_numpy(x, device: DeviceLike = None, dtype=None):
     return as_tensor(np.asarray(x), dev, dtype)
 
 
+def _host(t):
+    return None if t is None else t.detach().cpu().numpy()
+
+
 def result_to_numpy(res: MNNResult) -> MNNResult:
-    """A copy of ``res`` whose ``corrected`` is a host numpy array."""
-    return dataclasses.replace(res, corrected=res.corrected.detach().cpu().numpy())
+    """A copy of ``res`` whose ``corrected``, ``rotation`` and ``centers``
+    are host numpy arrays."""
+    return dataclasses.replace(res, corrected=_host(res.corrected),
+                               rotation=_host(res.rotation), centers=_host(res.centers))
+
+
+def pca_to_numpy(res: MultiBatchPCAResult) -> MultiBatchPCAResult:
+    """A copy of ``res`` whose components, rotation and centers are host
+    numpy arrays."""
+    return dataclasses.replace(res, components=[_host(c) for c in res.components],
+                               rotation=_host(res.rotation), centers=_host(res.centers))

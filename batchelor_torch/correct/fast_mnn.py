@@ -1,13 +1,14 @@
-"""reducedMNN: PC-space mutual-nearest-neighbour batch correction.
+"""fastMNN and reducedMNN: PC-space mutual-nearest-neighbour batch correction.
 
-Counterpart of ``batchelor_tpu/correct/fast_mnn.py`` for the merge on
-precomputed low-dimensional coordinates (reference R/fastMNN.R:436-562,
-R/reducedMNN.R:61-95). The merge-tree walk is host-side Python; every
-numeric step (kNN/MNN, averaging, orthogonalization, tricube apply) runs on
-the tensors' device. Each merge step finds MNN pairs between the left and
-right sets, removes variation along the average batch vector ("kissing"
-protection, R/fastMNN.R:84-88), then applies tricube-smoothed per-cell
-corrections.
+Counterpart of ``batchelor_tpu/correct/fast_mnn.py`` (reference
+R/fastMNN.R:283-658, R/reducedMNN.R:61-95). ``fast_mnn`` starts from gene
+space: cosine-norm -> multi_batch_pca -> the merge loop; ``reduced_mnn``
+starts from precomputed low-dimensional coordinates. The merge-tree walk is
+host-side Python; every numeric step (kNN/MNN, averaging, orthogonalization,
+tricube apply) runs on the tensors' device. Each merge step finds MNN pairs
+between the left and right sets, removes variation along the average batch
+vector ("kissing" protection, R/fastMNN.R:84-88), then applies
+tricube-smoothed per-cell corrections.
 """
 from __future__ import annotations
 
@@ -26,7 +27,10 @@ from ..ops.correction import (
     per_batch_var,
     tricube_weighted_correction,
 )
+from ..ops.cosine_norm import apply_cosine_norm, cosine_norm
+from ..ops.lowrank import LowRankOp
 from ..ops.mutual_nn import choose_k, restricted_mnn
+from ..ops.pca import multi_batch_pca
 from ..utils.batching import (
     check_batch_consistency,
     check_restrictions,
@@ -39,7 +43,7 @@ from ..utils.batching import (
 from ..utils.telemetry import get_recorder, trace_span
 from ..utils.trees import MergeNode, create_tree_predefined, get_next_merge, update_tree
 
-__all__ = ["reduced_mnn", "MNNResult", "MergeStepInfo"]
+__all__ = ["fast_mnn", "reduced_mnn", "MNNResult", "MergeStepInfo"]
 
 
 @dataclass
@@ -65,13 +69,34 @@ class MNNResult:
     corrected: (N_total, d) corrected coordinates (a tensor), input cell order.
     batch: per-cell batch label (int index or name).
     merge_info: one MergeStepInfo per merge step.
+    rotation/centers: PCA metadata when fast_mnn ran the PCA itself; the
+      ``reconstructed`` low-rank per-gene matrix is rotation @ corrected.T.
     """
 
     corrected: torch.Tensor
     batch: np.ndarray
     merge_info: List[MergeStepInfo]
+    rotation: Optional[torch.Tensor] = None
+    centers: Optional[torch.Tensor] = None
+    var_explained: Optional[np.ndarray] = None
+    var_total: Optional[float] = None
     batch_names: Optional[list] = None
     cell_names: Optional[np.ndarray] = None   # per output cell (input order)
+    gene_names: Optional[np.ndarray] = None   # rows of ``rotation``
+
+    def reconstructed(self, rows=None, cols=None):
+        """Low-rank per-gene corrected values (genes x cells) as a lazy
+        operator (reference LowRankMatrix, R/convertPCsToSCE.R:50-72).
+
+        Returns a :class:`~batchelor_torch.ops.lowrank.LowRankOp`; with
+        ``rows``/``cols`` the materialized block, in O(block) memory.
+        """
+        if self.rotation is None:
+            raise ValueError("no rotation available (d=None or reduced input)")
+        op = LowRankOp(self.rotation, self.corrected)
+        if rows is not None or cols is not None:
+            return op.block(rows, cols)
+        return op
 
 
 # --------------------------------------------------------------------------
@@ -373,4 +398,124 @@ def reduced_mnn(
     if cell_names is not None:
         # single input: output is input cell order, names pass through
         out.cell_names = np.asarray(cell_names, dtype=object)
+    return out
+
+
+def fast_mnn(
+    batches_or_single,
+    batch: Optional[Sequence] = None,
+    *,
+    k: int = 20,
+    prop_k: Optional[float] = None,
+    restrict=None,
+    cos_norm: bool = True,
+    ndist: float = 3.0,
+    d: Optional[int] = 50,
+    weights=None,
+    get_variance: bool = False,
+    merge_order=None,
+    auto_merge: bool = False,
+    min_batch_skip: Optional[float] = 0.0,
+    subset_row: Optional[np.ndarray] = None,
+    correct_all: bool = False,
+    svd_method: str = "gram",
+    svd_start=None,
+    batch_names: Optional[Sequence[str]] = None,
+    checkpoint_dir: Optional[str] = None,
+    knn_method: str = "exact",
+    cell_names=None,
+    gene_names=None,
+    device: DeviceLike = None,
+) -> MNNResult:
+    """Fast MNN batch correction from gene space (reference fastMNN,
+    R/fastMNN.R:283-331).
+
+    Accepts a list of (N_b, G) matrices (cells in rows) or a single matrix
+    plus ``batch``; arrays or tensors, moved to ``device`` (default: the
+    CUDA device; raises without one unless ``device="cpu"``). Output cells
+    are always in input order. ``svd_start`` is the start block of
+    ``svd_method="randomized"`` (see ``multi_batch_pca``).
+    ``cell_names``/``gene_names`` are carried onto the result like the
+    reference's .rename_output (R/utils_multibatch.R:3-33); gene names
+    follow the rotation rows (subset by ``subset_row`` unless
+    ``correct_all``). ``checkpoint_dir`` is not supported yet.
+    """
+    if checkpoint_dir is not None:
+        raise NotImplementedError("checkpoint_dir needs io/checkpoint.py, not ported yet")
+    dev = resolve_device(device)
+    single = not isinstance(batches_or_single, (list, tuple))
+    if single:
+        x = as_tensor(batches_or_single, dev)
+        if batch is None:
+            raise ValueError("'batch' must be specified for a single input matrix")
+        divided = divide_into_batches(
+            np.arange(x.shape[0]), batch, cells_in_rows=True, restrict=restrict
+        )
+        batches = [x[as_tensor(idx, dev, torch.long)] for idx in divided.batches]
+        restrict = divided.restricted
+        if batch_names is None:
+            batch_names = [str(n) for n in divided.names]
+    else:
+        batches = [as_tensor(b, dev) for b in batches_or_single]
+        if len(batches) < 2:
+            raise ValueError("at least two batches must be specified")
+        check_batch_consistency(batches, cells_in_rows=True)
+        restrict = check_restrictions(batches, restrict, cells_in_rows=True)
+
+    # Cosine norm: L2 computed on the gene subset, applied to the full
+    # matrix; PCA handles subsetting (reference R/fastMNN.R:348-354, 371-377).
+    if cos_norm:
+        with trace_span("fastmnn/cosine_norm"):
+            l2s = [cosine_norm(b, mode="l2norm", subset_row=subset_row) for b in batches]
+            batches = [apply_cosine_norm(b, l2) for b, l2 in zip(batches, l2s)]
+
+    with trace_span("fastmnn/pca"):
+        pca = multi_batch_pca(
+            batches,
+            d=d,
+            weights=weights,
+            subset_row=subset_row,
+            get_all_genes=correct_all and subset_row is not None,
+            get_variance=get_variance,
+            method=svd_method,
+            batch_names=batch_names,
+            start=svd_start,
+            device=dev,
+        )
+    out = _fast_mnn_core(
+        pca.components,
+        restrict,
+        k=k,
+        prop_k=prop_k,
+        ndist=ndist,
+        merge_order=merge_order,
+        auto_merge=auto_merge,
+        min_batch_skip=min_batch_skip,
+        batch_names=batch_names,
+        knn_method=knn_method,
+    )
+    if single:
+        reo = divided.reorder
+        out.corrected = out.corrected[as_tensor(reo, dev, torch.long)]
+        out.batch = out.batch[reo]
+        new_pairs = reindex_pairings([i.pairs for i in out.merge_info], reo)
+        for info, p in zip(out.merge_info, new_pairs):
+            info.pairs = p
+
+    out.rotation = pca.rotation
+    out.centers = pca.centers
+    out.var_explained = pca.var_explained
+    out.var_total = pca.var_total
+    if cell_names is not None:
+        if single:
+            out.cell_names = np.asarray(cell_names, dtype=object)
+        else:
+            out.cell_names = generate_cell_names(
+                cell_names, [b.shape[0] for b in batches]
+            )
+    if gene_names is not None:
+        gn = np.asarray(gene_names, dtype=object)
+        if subset_row is not None and not correct_all:
+            gn = gn[np.asarray(subset_row)]
+        out.gene_names = gn
     return out

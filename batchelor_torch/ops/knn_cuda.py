@@ -18,8 +18,9 @@ Pass 2: exact selection, then an exact rescore.
      replaces steps 1-3. Both selections go through kernel K2
      (``topk_rows``), whose k positions are distinct even under ties, as
      the argument needs.
-  4. The selected sub-chunks are gathered as whole (32, d) blocks and
-     rescored in full fp32; the top-k of the rescored rows are the result.
+  4. The selected sub-chunks are rescored in full fp32 as whole (32, d)
+     blocks by kernel K3's counterpart (``rescore_cuda.py``), which reads
+     them in place; the top-k of the rescored rows are the result.
 
 The result is exact up to ties: pass-1 selection carries ~2^-21 relative
 score error with the 3-product split (``six_pass`` brings it to fp32
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..device import full_fp32_matmul
+from .rescore_cuda import rescore_subchunks
 from .topk_cuda import select_topk
 
 __all__ = ["chunk_max_scores", "chunk_max_scores_plain", "query_knn_two_pass"]
@@ -65,6 +67,18 @@ def _bf16_parts(a: torch.Tensor, n: int) -> list:
         parts.append(p)
         rest = rest - p
     return parts
+
+
+def _split_dot(xs: list, qs: list) -> torch.Tensor:
+    """(nd, T) products of the split operands (1, 2 or 3 parts each): one
+    product, hh + hl + lh, or the 6 products of the three-way split."""
+    dot = lambda i, j: xs[i] @ qs[j].T
+    if len(xs) == 1:
+        return dot(0, 0)
+    if len(xs) == 2:
+        return dot(0, 0) + dot(0, 1) + dot(1, 0)
+    return (dot(0, 0) + (dot(0, 1) + dot(1, 0))
+            + (dot(0, 2) + dot(1, 1) + dot(2, 0)))
 
 
 def _check_pass1_inputs(q: torch.Tensor, x: torch.Tensor) -> None:
@@ -97,14 +111,7 @@ def chunk_max_scores_plain(q: torch.Tensor, x: torch.Tensor, six_pass: bool = Fa
         for q0 in range(0, nq, query_tile):
             qt = q[q0:q0 + query_tile]
             qs = [qt.float()] if nparts == 1 else _bf16_parts(qt, nparts)
-            dot = lambda i, j: xs[i] @ qs[j].T              # (nd, T)
-            if nparts == 1:
-                s = dot(0, 0)
-            elif nparts == 2:
-                s = dot(0, 0) + dot(0, 1) + dot(1, 0)
-            else:
-                s = (dot(0, 0) + (dot(0, 1) + dot(1, 0))
-                     + (dot(0, 2) + dot(1, 1) + dot(2, 0)))
+            s = _split_dot(xs, qs)                          # (nd, T)
             out[:, q0:q0 + qt.shape[0]] = (2.0 * s).view(nd // SUB, SUB, -1).amax(1)
     return out
 
@@ -226,26 +233,23 @@ def _chunked_view(data: torch.Tensor, data_valid: torch.Tensor):
 
 def _rescore_chunks(query: torch.Tensor, data3: torch.Tensor, dn2: torch.Tensor,
                     top_sub: torch.Tensor, k: int, with_scores: bool, max_bytes: int):
-    """Gather the selected sub-chunks as whole (SUB, d) blocks and rescore
-    them in full fp32, in query tiles that bound the (T, ks, SUB, d) gather
-    by ``max_bytes``. Returns (indices (nq, k) int64, squared distances or
+    """Rescore the selected sub-chunks in full fp32 (kernel K3's counterpart,
+    ``rescore_subchunks``, which never stores the gathered blocks) and take
+    the top k, in query tiles that bound the (T, ks * SUB) score block by
+    ``max_bytes``. Returns (indices (nq, k) int64, squared distances or
     None)."""
     q = query.float()
-    nq, d = q.shape
+    nq = q.shape[0]
     ks = top_sub.shape[1]
-    tile = max(1, max_bytes // (2 * ks * SUB * d * 4))
-    offs = torch.arange(SUB, device=q.device)
+    tile = max(1, max_bytes // (ks * SUB * 4))
     idxs, vals = [], []
-    with full_fp32_matmul():
-        for t0 in range(0, nq, tile):
-            qt, ct = q[t0:t0 + tile], top_sub[t0:t0 + tile]
-            n = qt.shape[0]
-            gx = data3[ct].view(n, ks * SUB, d)
-            s = 2.0 * torch.bmm(gx, qt[:, :, None])[:, :, 0] - dn2[ct].view(n, ks * SUB)
-            cols = (ct[:, :, None] * SUB + offs).view(n, ks * SUB)
-            v, pos = select_topk(s, k)
-            idxs.append(cols.gather(1, pos.long()))
-            vals.append(v)
+    for t0 in range(0, nq, tile):
+        ct = top_sub[t0:t0 + tile]
+        s = rescore_subchunks(q[t0:t0 + tile], data3, dn2, ct)
+        v, pos = select_topk(s, k)
+        pos = pos.long()
+        idxs.append(ct.gather(1, pos // SUB) * SUB + pos % SUB)
+        vals.append(v)
     idx = torch.cat(idxs)
     if not with_scores:
         return idx, None
@@ -278,8 +282,8 @@ def query_knn_two_pass(
 
     Queries run in pieces so the pass-1 maxima and their selection buffers
     (about 3 x 4 bytes x N_d/32 per query) stay within ``max_bytes``
-    (default: ``default_max_bytes``); the rescore's gather is bounded the
-    same way."""
+    (default: ``default_max_bytes``); the rescore's score block is bounded
+    the same way."""
     if max_bytes is None:
         max_bytes = default_max_bytes(query.device)
     nq = query.shape[0]

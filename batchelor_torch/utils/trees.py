@@ -18,6 +18,7 @@ __all__ = [
     "binarize_tree",
     "create_tree_predefined",
     "get_next_merge",
+    "tree_weights",
     "update_tree",
 ]
 
@@ -182,3 +183,37 @@ def update_tree(tree: Tree, path: Sequence[int], new_node: MergeNode) -> Tree:
     tree = list(tree)
     tree[path[0]] = update_tree(tree[path[0]], path[1:], new_node)
     return tree
+
+
+def tree_weights(tree, n_batches: int, names: Optional[Sequence[str]] = None) -> np.ndarray:
+    """Per-batch weights from a tree-like weighting scheme.
+
+    Each split divides its parent's weight equally among children; flat
+    multi-child vectors inside the tree also split equally. Mirrors
+    .get_list_weights + the tree branch of .construct_weight_vector
+    (reference R/multiBatchPCA.R:329-381).
+    """
+    out = np.zeros(n_batches, dtype=np.float64)
+    seen: list = []
+
+    def resolve(leaf):
+        if isinstance(leaf, str):
+            if names is None:
+                raise ValueError("named tree weights require batch names")
+            return list(names).index(leaf)
+        return int(leaf)
+
+    def recurse(node, weight):
+        if isinstance(node, (list, tuple)):
+            w = weight / len(node)
+            for child in node:
+                recurse(child, w)
+        else:
+            i = resolve(node)
+            out[i] = weight
+            seen.append(i)
+
+    recurse(tree, 1.0)
+    if sorted(seen) != list(range(n_batches)):
+        raise ValueError("invalid indices in tree-like 'weights'")
+    return out

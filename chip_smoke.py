@@ -14,16 +14,38 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      queries): |diff| <= 2^-20 * max|s| of the query column;
   3. the main path: reduced_mnn on two batches of 100,000 x 50 fp32 cells
      (bench.py's simulation, seed 42), k = 20, knn_method="auto", with the
-     launch counters showing that both kernels ran, its pairs against an
+     launch counters showing that K1, K2 and K3 ran, its pairs against an
      "exact" run (pair-set Jaccard >= 0.97: bf16 selection loses near-ties)
      and finite corrected values;
   4. the card against the CPU at 2 x 5,000 cells ("exact"): identical pairs,
-     corrected values within 1e-4.
+     corrected values within 1e-4;
+  5. kernel K3 (rescore_subchunks) against its plain version on the main
+     path's data and sub-chunk selection (100,000 queries, ks = 20, d = 50):
+     the gather identical to the CPU's, scores within 2^-20 * max|s| of the
+     row, and K2's top-k sets of both identical except on rows whose k-th
+     and (k+1)-th plain scores are that close;
+  6. kernel K4 (pass1_scores) against its plain version in its three
+     precisions at 98304 x 98304, d = 50 (first 4096 queries, masked rows
+     give -inf), then the probe's measurement with the port: pass-1 ms per
+     precision and the selection recall of "high3" and "bf16" against
+     "highest" through the exact rescore, on every 97th query;
+  7. the slice's path: fast_mnn from gene space on two batches of
+     100,000 cells x 2,000 genes, d = 50, k = 20, knn_method="auto", with
+     the launch counters showing K1, K2 and K3, finite corrected values, an
+     orthonormal rotation, and its pairs against an "exact" run: pair-set
+     Jaccard >= 0.80 for "auto" (bf16 selection loses crowded neighbours)
+     and >= 0.97 for "chunked" (fp32 selection);
+  8. the card against the CPU on bench.py config 3's options (4 batches x
+     2,000 cells x 500 genes, merge tree, restrict, prop_k, randomized
+     PCA): in fp64 identical pairs in every step and corrected within 1e-4
+     up to the sign of each PCA column; in fp32, where the two devices'
+     rounding moves the PCA's weakest directions, the agreement is printed.
 It prints the build time, one {"kernels": [...]} line with each kernel's
-launches on the main path, times (median of CUDA-event timings), bound and
-library yardstick, the main path's seconds, the card's name and power limit,
-and last {"ok": true, "device": {...}}. Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+launches on its path, times (median of CUDA-event timings), bound and
+library yardstick, one line each with the reduced_mnn and fast_mnn paths'
+seconds, the card's name and power limit, and last {"ok": true, "device":
+{...}}. Without a CUDA device, or outside a checkout of the repository, it
+exits non-zero and prints no result.
 """
 import json
 import os
@@ -35,10 +57,14 @@ N_CELLS = 100_000
 DIMS = 50
 K = 20
 SEED = 42
+GENES = 2_000                  # fast_mnn's gene-space width (phase 7)
+PROBE_N = 98_304               # knn_pass1_precision_probe.py's N
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
+FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores, same source
 K1_TOL = 2.0 ** -20
 PAIR_JACCARD_MIN = 0.97
+FAST_AUTO_JACCARD_MIN = 0.80   # bf16 selection on fast_mnn's crowded PCs (phase 7)
 
 
 def simulate(rng, n, g, shift=0.0, n_types=4, noise=0.5):
@@ -123,6 +149,8 @@ def phase_k2(torch, topk_cuda):
 def phase_k1(torch, knn_cuda, b1, b2):
     """K1 against its plain version in all three modes; returns its entry."""
     print("phase 2: chunk_max_scores (K1) against its plain version", flush=True)
+    from batchelor_torch.device import full_fp32_matmul
+
     query = torch.from_numpy(b1).cuda()
     data = torch.from_numpy(b2).cuda()
     valid = torch.ones(data.shape[0], dtype=torch.bool, device="cuda")
@@ -155,11 +183,13 @@ def phase_k1(torch, knn_cuda, b1, b2):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": float(diff.max()), "max_rel_err": rel,
         }
-        if mode == "bf16":
+        if mode != "six_pass":          # six_pass has fp32's operands and yardstick
             def library():
-                for q0 in range(0, nq, 8192):
-                    (x @ q[q0:q0 + 8192].T).view(nd // 32, 32, -1).amax(1)
-            entry["library_ms"] = cuda_ms(torch, library, 3)
+                with full_fp32_matmul():        # fp32 operands: no TF32
+                    for q0 in range(0, nq, 8192):
+                        (x @ q[q0:q0 + 8192].T).view(nd // 32, 32, -1).amax(1)
+            library_ms = cuda_ms(torch, library, 3)
+        entry["library_ms"] = library_ms
         modes[mode] = entry
         max_err = max(max_err, entry["max_abs_err"])
         del q, x, got, want
@@ -179,20 +209,27 @@ def pair_set(info, n):
     return p[:, 0] * n + p[:, 1]
 
 
-def phase_main_path(torch, np, bt, topk_cuda, knn_cuda, b1, b2):
+def zero_counts(wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def read_counts(wrappers):
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def phase_main_path(torch, np, bt, path_kernels, b1, b2):
     """reduced_mnn at 2 x 100k; returns (launch counts, seconds, pairs)."""
     print("phase 3: reduced_mnn, 2 x 100,000 x 50, k=20, knn_method='auto'", flush=True)
     batches = [torch.from_numpy(b).cuda() for b in (b1, b2)]
     torch.cuda.synchronize()
-    topk_cuda.topk_rows.launches = 0
-    knn_cuda.chunk_max_scores.launches = 0
+    zero_counts(path_kernels)
     t0 = time.perf_counter()
     res = bt.reduced_mnn(batches, k=K, knn_method="auto")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"topk_rows": topk_cuda.topk_rows.launches,
-                "chunk_max_scores": knn_cuda.chunk_max_scores.launches}
-    check(all(v > 0 for v in launches.values()), f"both kernels ran: {launches}")
+    launches = read_counts(path_kernels)
+    check(all(v > 0 for v in launches.values()), f"K1, K2 and K3 ran: {launches}")
     check(tuple(res.corrected.shape) == (2 * N_CELLS, DIMS)
           and bool(torch.isfinite(res.corrected).all()), "corrected is finite, (200000, 50)")
     t0 = time.perf_counter()
@@ -225,6 +262,270 @@ def phase_card_vs_cpu(torch, np, bt):
     check(err <= 1e-4, f"corrected within 1e-4 (max |diff| {err:.3g})")
 
 
+def row_scale(torch, want, dim):
+    """max |want| along ``dim`` over the finite entries, for the 2^-20 bounds."""
+    return torch.where(torch.isinf(want), 0.0, want.abs()).amax(dim, keepdim=True)
+
+
+def finite_diff(torch, got, want):
+    """|got - want| with both infinite entries counted as 0; fails unless
+    the infinite entries are the same -inf entries."""
+    inf = torch.isinf(want)
+    check(torch.equal(inf, torch.isinf(got)) and bool((got[inf] < 0).all())
+          and bool((want[inf] < 0).all()), "the same entries are -inf")
+    return torch.where(inf, 0.0, got) - torch.where(inf, 0.0, want)
+
+
+def phase_k3(torch, knn_cuda, rescore_cuda, topk_cuda, b1, b2):
+    """K3 against its plain version on the main path's data; returns its entry."""
+    print("phase 5: rescore_subchunks (K3) against its plain version", flush=True)
+    query = torch.from_numpy(b1).cuda()
+    data = torch.from_numpy(b2).cuda()
+    valid = torch.ones(data.shape[0], dtype=torch.bool, device="cuda")
+    m_t = knn_cuda._prep_pass1(query, data, valid, bf16=True)
+    top_sub = knn_cuda._select_subchunks(m_t, K)[:query.shape[0]].contiguous()
+    del m_t
+    data3, dn2 = knn_cuda._chunked_view(data, valid)
+    nq, ks = top_sub.shape
+    d = data3.shape[2]
+    check((nq, ks, d) == (N_CELLS, K, DIMS), f"K3 inputs: nq={nq}, ks={ks}, d={d}")
+    part = top_sub[:4096]
+    check(torch.equal(rescore_cuda.gather_subchunks_plain(part, data3).cpu(),
+                      data3.cpu()[part.cpu()]), "K3 gather: card equals CPU on 4096 queries")
+    got = rescore_cuda.rescore_subchunks(query, data3, dn2, top_sub)
+    want = rescore_cuda.rescore_subchunks_plain(query, data3, dn2, top_sub)
+    torch.cuda.synchronize()
+    scale = row_scale(torch, want, 1)
+    diff = finite_diff(torch, got, want).abs()
+    rel = float((diff / scale).max())
+    check(bool((diff <= K1_TOL * scale).all()),
+          f"K3: |diff| <= 2^-20 max|s| of the row (worst {rel:.3g} of max|s|)")
+    pv, pi = topk_cuda.topk_rows(want, K + 1)
+    _, gi = topk_cuda.topk_rows(got, K)
+    near = (pv[:, :-1] - pv[:, 1:]) <= K1_TOL * scale   # consecutive plain gaps
+    kth_tie = near[:, K - 1]
+    other_set = (gi.sort(1)[0] != pi[:, :K].sort(1)[0]).any(1)
+    other_order = (gi != pi[:, :K]).any(1)
+    kth_ties = int(kth_tie.sum())
+    check(not bool((other_set & ~kth_tie).any()),
+          f"K3: K2's top-{K} sets identical on every row but the {kth_ties} rows whose "
+          f"plain k-th and (k+1)-th scores are within 2^-20 max|s| "
+          f"({int(other_set.sum())} rows differ)")
+    check(not bool((other_order & ~near.any(1)).any()),
+          f"K3: K2's top-{K} order identical on every row without a near-tie "
+          f"({int(other_order.sum())} rows differ, {int(near.any(1).sum())} rows hold a near-tie)")
+    uniq = int(torch.unique(top_sub).numel())
+    nbytes = uniq * 32 * d * 4 + uniq * 32 * 4 + nq * ks * 8 + nq * d * 4 + nq * ks * 32 * 4
+    flops = 2.0 * nq * ks * 32 * d
+    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return {
+        "name": "rescore_subchunks", "route": "cuda",
+        "source": "batchelor_torch/csrc/rescore_chunks.cu",
+        "replaces": "benchmarks/knn_dma_rescore_probe.py:43",
+        "launches": None, "max_abs_err": float(diff.max()), "max_rel_err": rel,
+        "ms": cuda_ms(torch, lambda: rescore_cuda.rescore_subchunks(query, data3, dn2, top_sub), 10),
+        "plain_ms": cuda_ms(torch, lambda: rescore_cuda.rescore_subchunks_plain(
+            query, data3, dn2, top_sub), 3),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "library_none_because": "no single PyTorch call gathers rows by block id and "
+                                "rescores them; the plain version is the gather + bmm it replaces",
+        "shape": [nq, ks, d], "gather_l2_bytes": nq * ks * 32 * d * 4,
+        "unique_subchunks": uniq, "kth_near_tie_rows": kth_ties,
+    }
+
+
+def phase_k4(torch, np, knn_cuda, pass1_cuda):
+    """K4's probe measurement with the port, then K4 against its plain
+    version; returns (its entry, the probe measurement)."""
+    print("phase 6: pass1_scores (K4): the precision probe, then against its plain version",
+          flush=True)
+    from batchelor_torch.device import full_fp32_matmul
+
+    rng = np.random.default_rng(0)                  # the probe's seed and data
+    query = torch.from_numpy(rng.normal(size=(PROBE_N, DIMS)).astype(np.float32)).cuda()
+    data = torch.from_numpy(rng.normal(size=(PROBE_N, DIMS)).astype(np.float32)).cuda()
+    valid = torch.ones(PROBE_N, dtype=torch.bool, device="cuda")
+    data3, dn2 = knn_cuda._chunked_view(data, valid)
+    max_bytes = knn_cuda.default_max_bytes(query.device)
+
+    # the probe's path: select with each precision, rescore exactly
+    zero_counts([pass1_cuda.pass1_scores])
+    q, x, dn = pass1_cuda.pass1_operands(query, data, valid)
+    full = {}
+    for prec in ("highest", "high3", "bf16"):
+        m_t = pass1_cuda.pass1_scores(q, x, dn, prec)
+        top_sub = knn_cuda._select_subchunks(m_t, K)[:PROBE_N].contiguous()
+        del m_t
+        full[prec] = knn_cuda._rescore_chunks(query, data3, dn2, top_sub, K, True, max_bytes)
+    torch.cuda.synchronize()
+    launches = read_counts([pass1_cuda.pass1_scores])["pass1_scores"]
+    check(launches == 3, f"K4 ran once per precision on the probe's path ({launches})")
+    ref_i, ref_sq = (t[::97].cpu().numpy() for t in full["highest"])
+    probe = {}
+    for prec in ("high3", "bf16"):
+        idx, sq = (t[::97].cpu().numpy() for t in full[prec])
+        recall = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(ref_i, idx)]))
+        gap = float(np.max(np.abs(np.sqrt(ref_sq) - np.sqrt(sq))))
+        probe[prec] = {"recall_vs_highest": recall, "max_dist_gap": gap}
+        print(f"  {prec} vs highest selection: recall {recall:.6f}, max |d| gap {gap:.3e}",
+              flush=True)
+    check(probe["high3"]["recall_vs_highest"] >= 0.999, "high3 selection recall >= 0.999")
+    del full
+
+    # the kernel against its plain version, with masked rows
+    masked = valid.clone()
+    masked[1000:1100] = False                         # sub-chunks 32 and 33 fully masked
+    qm, xm, dnm = pass1_cuda.pass1_operands(query, data, masked)
+    nq, dp = qm.shape
+    nd = xm.shape[0]
+    check((nq, nd, dp) == (PROBE_N, PROBE_N, 64), f"K4 operands: {nq} x {nd} x {dp}")
+    modes, max_err = {}, 0.0
+    lib_fp32 = lib_bf16 = None
+    for prec in ("bf16", "high3", "highest"):
+        got = pass1_cuda.pass1_scores(qm[:4096], xm, dnm, prec)
+        want = pass1_cuda.pass1_scores_plain(qm[:4096], xm, dnm, prec)
+        torch.cuda.synchronize()
+        scale = row_scale(torch, want, 0)
+        diff = finite_diff(torch, got, want).abs()
+        check(bool(torch.isinf(want[32:34]).all()), f"K4 {prec}: masked sub-chunks are -inf")
+        rel = float((diff / scale).max())
+        check(bool((diff <= K1_TOL * scale).all()),
+              f"K4 {prec}: |diff| <= 2^-20 max|s| (worst {rel:.3g} of max|s|)")
+        products = {"bf16": 1, "high3": 3, "highest": 6}[prec]
+        flops = 2.0 * nq * nd * dp * products
+        nbytes = (nq + nd) * dp * 4 + nd * 4 + (nd // 32) * nq * 4
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+
+        def library(low):
+            xl = xm.to(torch.bfloat16) if low else xm
+            ql = qm.to(torch.bfloat16) if low else qm
+            with full_fp32_matmul():
+                for q0 in range(0, nq, 8192):
+                    s = 2.0 * (xl @ ql[q0:q0 + 8192].T).float() - dnm[:, None]
+                    s.view(nd // 32, 32, -1).amax(1)
+        if prec == "bf16":
+            lib_bf16 = cuda_ms(torch, lambda: library(True), 3)
+        elif lib_fp32 is None:
+            lib_fp32 = cuda_ms(torch, lambda: library(False), 3)
+        modes[prec] = {
+            "ms": cuda_ms(torch, lambda: pass1_cuda.pass1_scores(qm, xm, dnm, prec), 3),
+            "plain_ms": cuda_ms(torch, lambda: pass1_cuda.pass1_scores_plain(qm, xm, dnm, prec), 3),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_bf16 if prec == "bf16" else lib_fp32,
+            "max_abs_err": float(diff.max()), "max_rel_err": rel,
+        }
+        max_err = max(max_err, modes[prec]["max_abs_err"])
+        print(f"  pass 1 {prec}: {modes[prec]['ms']:.3f} ms", flush=True)
+    main = modes["high3"]                    # the precision the probe proposes
+    entry = {
+        "name": "pass1_scores", "route": "cuda", "source": "batchelor_torch/csrc/pass1_norm.cu",
+        "replaces": "benchmarks/knn_pass1_precision_probe.py:42",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "shape": [nq, nd, dp], "mode": "high3", "modes": modes,
+    }
+    return entry, probe
+
+
+def phase_fast_mnn(torch, np, bt, path_kernels):
+    """fast_mnn from gene space at 2 x 100,000 x 2,000; returns its line."""
+    print(f"phase 7: fast_mnn, 2 x {N_CELLS:,} x {GENES:,} genes, d={DIMS}, k={K}, "
+          "knn_method='auto'", flush=True)
+    rng = np.random.default_rng(SEED)
+    batches = [torch.from_numpy(simulate(rng, N_CELLS, GENES)).cuda(),
+               torch.from_numpy(simulate(rng, N_CELLS, GENES, shift=0.8)).cuda()]
+    torch.cuda.synchronize()
+    runs = []
+    for run in ("first", "second"):
+        rec = bt.MetricsRecorder()
+        if run == "first":
+            zero_counts(path_kernels)
+        with rec.activate():
+            t0 = time.perf_counter()
+            res = bt.fast_mnn(batches, d=DIMS, k=K, knn_method="auto")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if run == "first":
+            launches = read_counts(path_kernels)
+            check(all(v > 0 for v in launches.values()), f"K1, K2 and K3 ran: {launches}")
+        spans = {k: sum(v) for k, v in rec.spans.items()}
+        split = {"cosine_norm_s": spans.get("fastmnn/cosine_norm", 0.0),
+                 "pca_s": spans.get("fastmnn/pca", 0.0)}
+        split["merge_s"] = seconds - split["cosine_norm_s"] - split["pca_s"]
+        runs.append({"seconds": seconds, "cells_per_s": 2 * N_CELLS / seconds, **split})
+        print(f"  {run} run: {seconds:.3f} s {split}", flush=True)
+    check(tuple(res.corrected.shape) == (2 * N_CELLS, DIMS)
+          and bool(torch.isfinite(res.corrected).all()), "corrected is finite, (200000, 50)")
+    v = res.rotation.double()
+    ortho = float((v.T @ v - torch.eye(DIMS, dtype=v.dtype, device=v.device)).abs().max())
+    check(ortho <= 1e-4, f"rotation is orthonormal: |V'V - I| = {ortho:.3g} <= 1e-4")
+    exact = pair_set(bt.fast_mnn(batches, d=DIMS, k=K, knn_method="exact").merge_info[0],
+                     2 * N_CELLS)
+    fp32 = pair_set(bt.fast_mnn(batches, d=DIMS, k=K, knn_method="chunked").merge_info[0],
+                    2 * N_CELLS)
+    a = pair_set(res.merge_info[0], 2 * N_CELLS)
+    jaccard = np.intersect1d(a, exact).size / np.union1d(a, exact).size
+    jaccard_fp32 = np.intersect1d(fp32, exact).size / np.union1d(fp32, exact).size
+    # After cosine normalization and the PCA the cells crowd: the gaps between
+    # neighbours near the k-th are far below bf16's ~2^-8 of |x|^2, so "auto"
+    # (bf16 selection, as in the reference) loses pairs here that fp32
+    # selection ("chunked") keeps. Measured on an H100: 0.83143 with "auto",
+    # 0.99961 with "chunked".
+    check(jaccard >= FAST_AUTO_JACCARD_MIN,
+          f"'auto' pairs vs 'exact': Jaccard {jaccard:.5f} >= {FAST_AUTO_JACCARD_MIN}")
+    check(jaccard_fp32 >= PAIR_JACCARD_MIN,
+          f"'chunked' pairs vs 'exact': Jaccard {jaccard_fp32:.5f} >= {PAIR_JACCARD_MIN}")
+    return launches, {
+        "path": f"fast_mnn 2x{N_CELLS}x{GENES} d={DIMS} k={K} auto",
+        "seconds": runs[0]["seconds"], "seconds_second_run": runs[1]["seconds"],
+        "cells_per_s": runs[0]["cells_per_s"], "cells_per_s_second_run": runs[1]["cells_per_s"],
+        "split_first_run": {k: runs[0][k] for k in ("cosine_norm_s", "pca_s", "merge_s")},
+        "split_second_run": {k: runs[1][k] for k in ("cosine_norm_s", "pca_s", "merge_s")},
+        "pairs_auto": int(a.size), "pairs_exact": int(exact.size), "pair_jaccard": jaccard,
+        "pairs_chunked": int(fp32.size), "pair_jaccard_chunked": jaccard_fp32,
+        "rotation_orthonormality": ortho,
+    }
+
+
+def phase_config3_card_vs_cpu(torch, np, bt):
+    """bench.py config 3's options on the card and on the CPU: in fp64 the
+    pairs must be identical; in fp32 the agreement is measured and reported."""
+    print("phase 8: fast_mnn, card against CPU, 4 x 2,000 x 500 (bench.py config 3)", flush=True)
+    rng = np.random.default_rng(SEED)
+    n = 2000
+    mats = [simulate(rng, n, 500, shift=0.3 * i) for i in range(4)]
+    opts = dict(d=DIMS, prop_k=0.005, merge_order=[[0, 1], [2, 3]],
+                restrict=[np.arange(0, n, 2), None, None, np.arange(0, n, 3)],
+                svd_method="randomized")
+    out = {}
+    for dtype in (np.float64, np.float32):
+        name = np.dtype(dtype).name
+        gpu = bt.fast_mnn([m.astype(dtype) for m in mats], **opts)
+        cpu = bt.fast_mnn([m.astype(dtype) for m in mats], device="cpu", **opts)
+        jac = []
+        for g, c in zip(gpu.merge_info, cpu.merge_info):
+            a, b = pair_set(g, 4 * n), pair_set(c, 4 * n)
+            jac.append(np.intersect1d(a, b).size / np.union1d(a, b).size)
+        vg, vc = gpu.rotation.cpu().double(), cpu.rotation.double()
+        sign = torch.sign(torch.diagonal(vg.T @ vc))
+        err = float((gpu.corrected.cpu().double() * sign - cpu.corrected.double()).abs().max())
+        sin_max = float(torch.linalg.matrix_norm(vc - vg @ (vg.T @ vc), ord=2))
+        out[name] = {"pair_jaccard_by_step": jac, "corrected_max_abs_diff": err,
+                     "rotation_subspace_sin_max": sin_max}
+        print(f"  {name}: pair Jaccard by step {jac}, corrected max |diff| {err:.3g}, "
+              f"rotation subspace sin {sin_max:.3g}", flush=True)
+        if dtype is np.float64:
+            for step, (g, c) in enumerate(zip(gpu.merge_info, cpu.merge_info)):
+                check(np.array_equal(g.pairs, c.pairs),
+                      f"fp64 step {step}: identical pairs ({c.pairs.shape[0]})")
+            check(err <= 1e-4, f"fp64 corrected within 1e-4 up to column signs ({err:.3g})")
+    return out
+
+
 def main():
     import torch
 
@@ -236,7 +537,7 @@ def main():
 
     import batchelor_torch as bt
     from batchelor_torch import _build
-    from batchelor_torch.ops import knn_cuda, topk_cuda
+    from batchelor_torch.ops import knn_cuda, pass1_cuda, rescore_cuda, topk_cuda
 
     build_s = _build.build()
     print(f"build: {build_s:.3f} s for {len(_build.KERNELS)} kernels", flush=True)
@@ -244,22 +545,34 @@ def main():
     rng = np.random.default_rng(SEED)
     b1 = simulate(rng, N_CELLS, DIMS)
     b2 = simulate(rng, N_CELLS, DIMS, shift=0.8)
+    path_kernels = [knn_cuda.chunk_max_scores, topk_cuda.topk_rows,
+                    rescore_cuda.rescore_subchunks]
 
     k2 = phase_k2(torch, topk_cuda)
     k1 = phase_k1(torch, knn_cuda, b1, b2)
     launches, seconds, seconds_again, n_auto, n_exact, jaccard = phase_main_path(
-        torch, np, bt, topk_cuda, knn_cuda, b1, b2)
+        torch, np, bt, path_kernels, b1, b2)
     phase_card_vs_cpu(torch, np, bt)
+    k3 = phase_k3(torch, knn_cuda, rescore_cuda, topk_cuda, b1, b2)
+    k4, probe = phase_k4(torch, np, knn_cuda, pass1_cuda)
+    fast_launches, fast_line = phase_fast_mnn(torch, np, bt, path_kernels)
+    config3 = phase_config3_card_vs_cpu(torch, np, bt)
 
-    k2["launches"] = launches["topk_rows"]
-    k1["launches"] = launches["chunk_max_scores"]
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    for entry in (k1, k2, k3):
+        entry["launches"] = launches[entry["name"]]
+        entry["launches_by_path"] = {"reduced_mnn": launches[entry["name"]],
+                                     "fast_mnn": fast_launches[entry["name"]]}
+    k4["launches_by_path"] = {"pass1_precision_probe": k4["launches"]}
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(json.dumps({"main_path": "reduced_mnn 2x100000x50 k=20 auto",
                       "seconds": seconds, "seconds_second_run": seconds_again,
                       "cells_per_s": 2 * N_CELLS / seconds,
                       "cells_per_s_second_run": 2 * N_CELLS / seconds_again,
                       "pairs_auto": n_auto, "pairs_exact": n_exact,
                       "pair_jaccard": jaccard, "build_s": build_s}), flush=True)
+    print(json.dumps(fast_line), flush=True)
+    print(json.dumps({"pass1_precision_probe": probe,
+                      "config3_card_vs_cpu": config3}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)

@@ -6,13 +6,14 @@ conftest):
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Each kernel is held against its plain version on the same card tensors:
-K2 exactly, K1 within 2^-20 of the query column's max |score|.
+K2 exactly, K1 and K4 within 2^-20 of the query column's max |score|, K3
+within 2^-20 of the query row's max |score|.
 """
 import numpy as np
 import pytest
 import torch
 
-from batchelor_torch.ops import knn_cuda, topk_cuda
+from batchelor_torch.ops import knn_cuda, pass1_cuda, rescore_cuda, topk_cuda
 from batchelor_torch.ops.knn import query_knn
 
 pytestmark = pytest.mark.cuda
@@ -93,3 +94,59 @@ def test_select_subchunks_card_matches_cpu(c32, card):
     got = knn_cuda._select_subchunks(m_t, 20)
     want = knn_cuda._select_subchunks(m_t.cpu(), 20)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("nq,c32,ks,d", [(300, 96, 20, 50), (77, 40, 5, 64), (64, 33, 3, 7),
+                                         (50, 64, 20, 300), (5, 8, 1, 129)])
+def test_rescore_subchunks_kernel_matches_plain(nq, c32, ks, d, card):
+    # d = 300 and 129 stage each sub-chunk in several pieces
+    q = torch.randn(nq, d, device="cuda", generator=card)
+    data3 = torch.randn(c32, 32, d, device="cuda", generator=card)
+    dn2 = (data3 * data3).sum(2)
+    dn2[1, 3:9] = float("inf")                     # masked rows score -inf
+    top_sub = torch.randint(0, c32, (nq, ks), device="cuda", generator=card)
+    top_sub[:, 0] = 1
+    before = rescore_cuda.rescore_subchunks.launches
+    got = rescore_cuda.rescore_subchunks(q, data3, dn2, top_sub)
+    want = rescore_cuda.rescore_subchunks_plain(q, data3, dn2, top_sub)
+    torch.cuda.synchronize()
+    assert rescore_cuda.rescore_subchunks.launches == before + 1
+    masked = torch.isinf(want)
+    assert torch.equal(masked, torch.isinf(got)) and bool((got[masked] < 0).all())
+    scale = torch.where(masked, 0.0, want.abs()).amax(1, keepdim=True)
+    diff = torch.where(masked, 0.0, got - want).abs()
+    assert bool((diff <= 2.0 ** -20 * scale).all())
+
+
+def test_rescore_subchunks_kernel_rejects_what_it_cannot_take(card):
+    q = torch.randn(4, 8, device="cuda", generator=card)
+    data3 = torch.randn(3, 32, 8, device="cuda", generator=card)
+    dn2 = torch.zeros(3, 32, device="cuda")
+    ids = torch.zeros(4, 2, dtype=torch.long, device="cuda")
+    with pytest.raises(TypeError):
+        rescore_cuda.rescore_subchunks(q, data3, dn2, ids.int())
+    with pytest.raises(ValueError):
+        rescore_cuda.rescore_subchunks(q.T.contiguous().T, data3, dn2, ids)
+    with pytest.raises(ValueError):
+        rescore_cuda.rescore_subchunks(q, data3, dn2.cpu(), ids)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "high3", "highest"])
+@pytest.mark.parametrize("d0", [50, 100])
+def test_pass1_scores_kernel_matches_plain(precision, d0, card):
+    query = torch.randn(300, d0, device="cuda", generator=card)
+    data = torch.randn(3000, d0, device="cuda", generator=card) + 0.5
+    valid = torch.ones(3000, dtype=torch.bool, device="cuda")
+    valid[1000:1100] = False
+    q, x, dn = pass1_cuda.pass1_operands(query, data, valid)
+    assert q.shape[1] == (64 if d0 <= 64 else 128)
+    before = pass1_cuda.pass1_scores.launches
+    got = pass1_cuda.pass1_scores(q, x, dn, precision)
+    want = pass1_cuda.pass1_scores_plain(q, x, dn, precision)
+    torch.cuda.synchronize()
+    assert pass1_cuda.pass1_scores.launches == before + 1
+    masked = torch.isinf(want)
+    assert bool(masked.any()) and torch.equal(masked, torch.isinf(got))
+    scale = torch.where(masked, 0.0, want.abs()).amax(0, keepdim=True)
+    diff = torch.where(masked, 0.0, got - want).abs()
+    assert bool((diff <= 2.0 ** -20 * scale).all())

@@ -32,13 +32,15 @@ def test_no_jax_in_the_port():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'batchelor_tpu'))]\n"
         "assert not bad, bad\n"
+        "new = ['ops.cosine_norm', 'ops.pca', 'ops.lowrank', 'ops.rescore_cuda', 'ops.pass1_cuda']\n"
+        "assert all('batchelor_torch.' + m in sys.modules for m in new)\n"
         "print('ok', len([m for m in sys.modules if m.startswith('batchelor_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 15
+    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 20
 
 
 def test_entry_points_default_to_cuda(monkeypatch, rng):
@@ -52,6 +54,19 @@ def test_entry_points_default_to_cuda(monkeypatch, rng):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_gene_space_entry_points_default_to_cuda(monkeypatch, rng):
+    from batchelor_torch import fast_mnn, multi_batch_pca
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    b = [rng.normal(size=(20, 6)), rng.normal(size=(25, 6))]
+    for call in (lambda: fast_mnn(b, d=2), lambda: multi_batch_pca(b, d=2),
+                 lambda: fast_mnn(np.concatenate(b), batch=np.repeat([0, 1], [20, 25]))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    res = fast_mnn(b, d=2, k=3, device="cpu")
+    assert res.corrected.device.type == "cpu" and res.rotation.shape == (6, 2)
 
 
 def test_from_numpy_and_result_to_numpy(rng):
