@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` into ``build/lib<name>-<hash>.so`` beside this file; the hash covers
-the source and the flags, so an edited source is rebuilt. No PyTorch headers
-are compiled, which keeps a build at seconds. A failed build raises.
+the source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt. No PyTorch headers are compiled, which keeps a
+build at seconds. A failed build raises.
 """
 from __future__ import annotations
 
@@ -47,8 +48,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, of
+    every header in ``csrc/`` (which it may include) and of the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -17,193 +17,36 @@
 //
 // Bound on this card: operations. 2 * nq * nd * dp flop per product, on
 // tensor cores at best: 100352^2 * 64 in bf16 is 1.29e12 flop, ~1.3 ms at
-// 989 TFLOP/s, against 0.38 ms for writing the 1.26 GB output.
+// 989 TFLOP/s (3.9 and 7.8 ms with 3 and 6 products), against 0.38 ms for
+// writing the 1.26 GB output.
 //
-// Design. Every CTA computes a 128 data rows x 128 queries block and keeps
-// it on chip; the 32-row max is taken in registers and by warp shuffles, so
-// only the (nd/32, nq) maxima are stored.
-//  * bf16 mode (the one "auto" takes): tensor cores through mma.sync
-//    m16n8k16 (bf16 in, fp32 accumulate). 8 warps, each a 32-row x 64-query
-//    slab; operands are staged in shared memory in 64-feature steps with
-//    rows padded to 72 bf16, which makes the fragment loads conflict-free.
-//    A warp's 32 rows are exactly one sub-chunk, so its max is a max over
-//    its own fragments and three shuffles. No TMA, wgmma or pipelining yet.
-//  * fp32 modes: a tiled SIMT product on the fp32 FMA units. 256 threads
-//    each hold an 8 x 8 register tile, staged in steps of BK features that
-//    are split into their bf16 parts as they are stored. Each step's
-//    products are summed apart and then added, which keeps the rounding of
-//    the interleaved split products near the plain version's (separate
-//    products, then summed); the four threads that share a sub-chunk are
-//    lanes that differ in their two low bits.
+// Design. Every CTA computes a block of 128 data rows x 128 queries (64
+// with six_pass) on tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums)
+// and keeps it on chip; each of 8 warps owns a slab of 32 rows, one
+// sub-chunk, so the 32-row max is taken in registers and by warp shuffles
+// and only the (nd/32, nq) maxima are stored (split_mma.cuh).
+//  * bf16 mode (the one "auto" takes): operands staged in shared memory in
+//    64-feature steps, rows padded to 72 bf16 for conflict-free fragment
+//    loads.
+//  * fp32 modes (what "chunked" and exact_selection take): split_mma.cuh's
+//    mainloop, which splits the operands into their bf16 parts as it
+//    stages them, runs the 3 or 6 products on the tensor cores and walks
+//    each data tile over several query tiles, with the epilogue 2 * sum.
+// No TMA, wgmma or warp specialisation yet; they are the next step.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cmath>
+#include "split_mma.cuh"
 
 namespace {
 
-constexpr int BD = 128;      // data rows per CTA
-constexpr int BQ = 128;      // queries per CTA
-constexpr int TM = 8;        // data rows per thread
-constexpr int TN = 8;        // queries per thread
-constexpr int SUB = 32;      // data rows per sub-chunk
-constexpr int PAD = 4;       // shared-memory row padding (keeps float4 alignment)
-constexpr int kThreads = (BD / TM) * (BQ / TN);   // 256
+using namespace split_mma;
 
 enum Mode { kBf16 = 0, kSplit3 = 1, kSplit6 = 2 };
 
-template <int MODE> struct Cfg;
-template <> struct Cfg<kSplit3> { static constexpr int parts = 2, bk = 16; };
-template <> struct Cfg<kSplit6> { static constexpr int parts = 3, bk = 8; };
-
-__device__ __forceinline__ float bf16_round(float a) {
-  return __bfloat162float(__float2bfloat16_rn(a));
-}
-
-// Split a into its bf16 parts, as the reference does: hi = bf16(a),
-// then bf16 of what remains.
-template <int PARTS>
-__device__ __forceinline__ void split(float a, float (&p)[3]) {
-  if (PARTS == 2) {
-    p[0] = bf16_round(a);
-    p[1] = bf16_round(a - p[0]);
-  } else {
-    p[0] = bf16_round(a);
-    const float r = a - p[0];
-    p[1] = bf16_round(r);
-    p[2] = bf16_round(r - p[1]);
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-chunk_max_split_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                       float* __restrict__ out, int nq, int nd, int dp) {
-  constexpr int PARTS = Cfg<MODE>::parts;
-  constexpr int BK = Cfg<MODE>::bk;
-  __shared__ __align__(16) float xs[PARTS][BK][BD + PAD];
-  __shared__ __align__(16) float qs[PARTS][BK][BQ + PAD];
-
-  const int nqb = nq / BQ;
-  const int qb = blockIdx.x % nqb;          // neighbouring CTAs share a data tile
-  const int db = blockIdx.x / nqb;
-  const int q0 = qb * BQ;
-  const int d0 = db * BD;
-  const int tid = threadIdx.x;
-  const int tr = tid & 15;                  // data-row group: rows tr*8 .. tr*8+7
-  const int tc = tid >> 4;                  // query group: queries tc*8 .. tc*8+7
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < dp; k0 += BK) {
-    // stage a (BD x BK) data tile and a (BQ x BK) query tile, transposed
-    // to feature-major, split into their bf16 parts
-    for (int e = tid; e < BD * BK; e += kThreads) {
-      const int r = e / BK, f = e % BK;
-      float p[3];
-      split<PARTS>(x[static_cast<size_t>(d0 + r) * dp + k0 + f], p);
-#pragma unroll
-      for (int s = 0; s < PARTS; ++s) xs[s][f][r] = p[s];
-    }
-    for (int e = tid; e < BQ * BK; e += kThreads) {
-      const int r = e / BK, f = e % BK;
-      float p[3];
-      split<PARTS>(q[static_cast<size_t>(q0 + r) * dp + k0 + f], p);
-#pragma unroll
-      for (int s = 0; s < PARTS; ++s) qs[s][f][r] = p[s];
-    }
-    __syncthreads();
-
-    // this feature block's products, summed into a fresh partial first: the
-    // block's 3 or 6 products per feature then round at the magnitude of a
-    // 16-feature sum, not of the whole score
-    float part[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
-#pragma unroll
-    for (int f = 0; f < BK; ++f) {
-      float a[PARTS][TM], b[PARTS][TN];
-#pragma unroll
-      for (int s = 0; s < PARTS; ++s) {
-        const float4* xa = reinterpret_cast<const float4*>(&xs[s][f][tr * TM]);
-        const float4* qa = reinterpret_cast<const float4*>(&qs[s][f][tc * TN]);
-        const float4 x0 = xa[0], x1 = xa[1], y0 = qa[0], y1 = qa[1];
-        a[s][0] = x0.x; a[s][1] = x0.y; a[s][2] = x0.z; a[s][3] = x0.w;
-        a[s][4] = x1.x; a[s][5] = x1.y; a[s][6] = x1.z; a[s][7] = x1.w;
-        b[s][0] = y0.x; b[s][1] = y0.y; b[s][2] = y0.z; b[s][3] = y0.w;
-        b[s][4] = y1.x; b[s][5] = y1.y; b[s][6] = y1.z; b[s][7] = y1.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          float v = part[i][j];
-          if (MODE == kSplit3) {                        // hh + hl + lh
-            v = fmaf(a[0][i], b[0][j], v);
-            v = fmaf(a[0][i], b[1][j], v);
-            v = fmaf(a[1][i], b[0][j], v);
-          } else {                                      // hh + hm + mh + hl + mm + lh
-            v = fmaf(a[0][i], b[0][j], v);
-            v = fmaf(a[0][i], b[1][j], v);
-            v = fmaf(a[1][i], b[0][j], v);
-            v = fmaf(a[0][i], b[2][j], v);
-            v = fmaf(a[1][i], b[1][j], v);
-            v = fmaf(a[2][i], b[0][j], v);
-          }
-          part[i][j] = v;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
-    __syncthreads();
-  }
-
-  // max over this thread's 8 rows, then over the 4 lanes of its sub-chunk
-  float m[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    float v = acc[0][j];
-#pragma unroll
-    for (int i = 1; i < TM; ++i) v = fmaxf(v, acc[i][j]);
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-    m[j] = 2.f * v;
-  }
-  if ((tr & 3) == 0) {
-    const int c = (d0 + tr * TM) / SUB;
-    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(c) * nq + q0 + tc * TN);
-    o[0] = make_float4(m[0], m[1], m[2], m[3]);
-    o[1] = make_float4(m[4], m[5], m[6], m[7]);
-  }
-}
-
-// ---- bf16 mode: tensor cores (mma.sync m16n8k16) ----
-
-constexpr int MBK = 64;                  // features per shared-memory step
-constexpr int MLD = MBK + 8;             // padded row, in bf16
-constexpr int WARPS_M = 4, WARPS_N = 2;  // warp slabs: 32 data rows x 64 queries
-
-__device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 sums
-__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
-                                          const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// norms are folded into the features: the score is twice the sum
+struct FoldedNorm {
+  __device__ float row(int) const { return 0.f; }
+  __device__ float score(float s, float) const { return 2.f * s; }
+};
 
 __global__ void __launch_bounds__(kThreads)
 chunk_max_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -262,36 +105,17 @@ chunk_max_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
   }
-
-  // a fragment's d0/d1 are rows g (cols 2t, 2t+1), d2/d3 rows g + 8; the
-  // warp's 32 rows are one sub-chunk: max over the thread's 4 rows, then
-  // over the 8 row groups (lanes that differ in bits 2-4)
-  const int c = (d0 + wm * 32) / SUB;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    float m0 = fmaxf(fmaxf(acc[0][nt][0], acc[0][nt][2]), fmaxf(acc[1][nt][0], acc[1][nt][2]));
-    float m1 = fmaxf(fmaxf(acc[0][nt][1], acc[0][nt][3]), fmaxf(acc[1][nt][1], acc[1][nt][3]));
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    }
-    if (g == 0) {
-      const int col = q0 + wn * 64 + nt * 8 + 2 * t;
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(c) * nq + col) =
-          make_float2(2.f * m0, 2.f * m1);
-    }
-  }
+  store_subchunk_max(acc, FoldedNorm{}, out, nq, d0, q0, wm, wn, g, t);
 }
 
-template <typename Kernel, typename T>
-int launch(Kernel kernel, const void* q, const void* x, float* out, int nq, int nd,
-           int dp, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* x, float* out, int nq, int nd, int dp,
+                cudaStream_t stream) {
   const long long blocks = static_cast<long long>(nq / BQ) * (nd / BD);
   if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(x), out, nq, nd, dp);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  chunk_max_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(x), out, nq, nd,
+      dp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,16 +129,15 @@ extern "C" int chunk_max_launch(const void* q, const void* x, float* out,
                                 int nq, int nd, int dp, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nq % BQ || nd % BD || dp % MBK) return static_cast<int>(cudaErrorInvalidValue);
+  const float* qf = static_cast<const float*>(q);
+  const float* xf = static_cast<const float*>(x);
   switch (mode) {
     case kBf16:
-      return launch<decltype(&chunk_max_bf16_kernel), __nv_bfloat16>(
-          chunk_max_bf16_kernel, q, x, out, nq, nd, dp, s);
+      return launch_bf16(q, x, out, nq, nd, dp, s);
     case kSplit3:
-      return launch<decltype(&chunk_max_split_kernel<kSplit3>), float>(
-          chunk_max_split_kernel<kSplit3>, q, x, out, nq, nd, dp, s);
+      return split_mma::launch<2>(qf, xf, FoldedNorm{}, out, nq, nd, dp, s);
     case kSplit6:
-      return launch<decltype(&chunk_max_split_kernel<kSplit6>), float>(
-          chunk_max_split_kernel<kSplit6>, q, x, out, nq, nd, dp, s);
+      return split_mma::launch<3>(qf, xf, FoldedNorm{}, out, nq, nd, dp, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -22,165 +22,33 @@
 // TFLOP/s in bf16 (3.75 and 7.5 ms with 3 and 6 products), against 0.36 ms
 // for writing the 1.2 GB output.
 //
-// Design: the tiles of chunk_max.cu. Every CTA computes a 128 data rows x
-// 128 queries block on chip and keeps only its 32-row maxima; the norm is
+// Design: the tiles of chunk_max.cu (split_mma.cuh). Every CTA computes a
+// block of 128 data rows x 128 queries (64 with highest) on tensor cores
+// (mma.sync m16n8k16) and keeps only its 32-row maxima; the norm is
 // subtracted in the epilogue, before the max.
-//  * bf16: tensor cores through mma.sync m16n8k16. The fp32 operands are
-//    rounded to bf16 as they are staged in shared memory (rows padded to 72
-//    bf16 for conflict-free fragment loads). A warp's 32 rows are one
-//    sub-chunk, so its max is over its own fragments and three shuffles.
-//  * high3 / highest: a tiled SIMT product on the fp32 FMA units, 8 x 8
-//    register tiles, operands split into their bf16 parts as they are
-//    staged; each 16-feature (8 for highest) block is summed into a fresh
-//    partial before it is added, which keeps the rounding near the plain
-//    version's separate products.
+//  * bf16: the fp32 operands are rounded to bf16 as they are staged in
+//    shared memory (rows padded to 72 bf16 for conflict-free fragment
+//    loads).
+//  * high3 / highest: split_mma.cuh's mainloop, which splits the operands
+//    into their bf16 parts as it stages them, runs the 3 or 6 products on
+//    the tensor cores and walks each data tile over several query tiles,
+//    with the epilogue 2 * sum - dn[r].
+// No TMA, wgmma or warp specialisation yet; they are the next step.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cmath>
+#include "split_mma.cuh"
 
 namespace {
 
-constexpr int BD = 128;      // data rows per CTA
-constexpr int BQ = 128;      // queries per CTA
-constexpr int TM = 8;        // data rows per thread
-constexpr int TN = 8;        // queries per thread
-constexpr int SUB = 32;      // data rows per sub-chunk
-constexpr int PAD = 4;       // shared-memory row padding (keeps float4 alignment)
-constexpr int kThreads = (BD / TM) * (BQ / TN);   // 256
+using namespace split_mma;
 
 enum Mode { kBf16 = 0, kHigh3 = 1, kHighest = 2 };
 
-template <int MODE> struct Cfg;
-template <> struct Cfg<kHigh3> { static constexpr int parts = 2, bk = 16; };
-template <> struct Cfg<kHighest> { static constexpr int parts = 3, bk = 8; };
-
-__device__ __forceinline__ float bf16_round(float a) {
-  return __bfloat162float(__float2bfloat16_rn(a));
-}
-
-// a as PARTS bf16 values: hi = bf16(a), then bf16 of what remains
-template <int PARTS>
-__device__ __forceinline__ void split(float a, float (&p)[3]) {
-  p[0] = bf16_round(a);
-  const float r = a - p[0];
-  p[1] = bf16_round(r);
-  if (PARTS == 3) p[2] = bf16_round(r - p[1]);
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-pass1_split_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                   const float* __restrict__ dn, float* __restrict__ out,
-                   int nq, int nd, int dp) {
-  constexpr int PARTS = Cfg<MODE>::parts;
-  constexpr int BK = Cfg<MODE>::bk;
-  __shared__ __align__(16) float xs[PARTS][BK][BD + PAD];
-  __shared__ __align__(16) float qs[PARTS][BK][BQ + PAD];
-
-  const int nqb = nq / BQ;
-  const int q0 = (blockIdx.x % nqb) * BQ;   // neighbouring CTAs share a data tile
-  const int d0 = (blockIdx.x / nqb) * BD;
-  const int tid = threadIdx.x;
-  const int tr = tid & 15;                  // data rows tr*8 .. tr*8+7
-  const int tc = tid >> 4;                  // queries tc*8 .. tc*8+7
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < dp; k0 += BK) {
-    for (int e = tid; e < BD * BK; e += kThreads) {
-      const int r = e / BK, f = e % BK;
-      float p[3];
-      split<PARTS>(x[static_cast<size_t>(d0 + r) * dp + k0 + f], p);
-#pragma unroll
-      for (int s = 0; s < PARTS; ++s) xs[s][f][r] = p[s];
-    }
-    for (int e = tid; e < BQ * BK; e += kThreads) {
-      const int r = e / BK, f = e % BK;
-      float p[3];
-      split<PARTS>(q[static_cast<size_t>(q0 + r) * dp + k0 + f], p);
-#pragma unroll
-      for (int s = 0; s < PARTS; ++s) qs[s][f][r] = p[s];
-    }
-    __syncthreads();
-
-    float part[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
-#pragma unroll
-    for (int f = 0; f < BK; ++f) {
-      float a[PARTS][TM], b[PARTS][TN];
-#pragma unroll
-      for (int s = 0; s < PARTS; ++s) {
-        const float4* xa = reinterpret_cast<const float4*>(&xs[s][f][tr * TM]);
-        const float4* qa = reinterpret_cast<const float4*>(&qs[s][f][tc * TN]);
-        const float4 x0 = xa[0], x1 = xa[1], y0 = qa[0], y1 = qa[1];
-        a[s][0] = x0.x; a[s][1] = x0.y; a[s][2] = x0.z; a[s][3] = x0.w;
-        a[s][4] = x1.x; a[s][5] = x1.y; a[s][6] = x1.z; a[s][7] = x1.w;
-        b[s][0] = y0.x; b[s][1] = y0.y; b[s][2] = y0.z; b[s][3] = y0.w;
-        b[s][4] = y1.x; b[s][5] = y1.y; b[s][6] = y1.z; b[s][7] = y1.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          float v = part[i][j];
-          v = fmaf(a[0][i], b[0][j], v);                // hh + hl + lh
-          v = fmaf(a[0][i], b[1][j], v);
-          v = fmaf(a[1][i], b[0][j], v);
-          if (MODE == kHighest) {                       // + hm + mm + lm terms
-            v = fmaf(a[0][i], b[2][j], v);
-            v = fmaf(a[1][i], b[1][j], v);
-            v = fmaf(a[2][i], b[0][j], v);
-          }
-          part[i][j] = v;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
-    __syncthreads();
-  }
-
-  // score = 2 acc - dn per row; max over this thread's 8 rows, then over the
-  // 4 lanes of its sub-chunk (lanes that differ in their two low bits)
-  float dnr[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) dnr[i] = dn[d0 + tr * TM + i];
-  float m[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    float v = 2.f * acc[0][j] - dnr[0];
-#pragma unroll
-    for (int i = 1; i < TM; ++i) v = fmaxf(v, 2.f * acc[i][j] - dnr[i]);
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-    m[j] = v;
-  }
-  if ((tr & 3) == 0) {
-    const int c = (d0 + tr * TM) / SUB;
-    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(c) * nq + q0 + tc * TN);
-    o[0] = make_float4(m[0], m[1], m[2], m[3]);
-    o[1] = make_float4(m[4], m[5], m[6], m[7]);
-  }
-}
-
-// ---- bf16: tensor cores (mma.sync m16n8k16) ----
-
-constexpr int MBK = 64;                  // features per shared-memory step
-constexpr int MLD = MBK + 8;             // padded row, in bf16
-constexpr int WARPS_M = 4;               // warp slabs: 32 data rows x 64 queries
-
-__device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
+// the norm is its own vector, subtracted per row
+struct SeparateNorm {
+  const float* dn;
+  __device__ float row(int r) const { return dn[r]; }
+  __device__ float score(float s, float n) const { return 2.f * s - n; }
+};
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -193,16 +61,6 @@ __device__ __forceinline__ uint4 load8_bf16(const float* p) {
   const float4 v = reinterpret_cast<const float4*>(p)[1];
   return make_uint4(pack_bf16(u.x, u.y), pack_bf16(u.z, u.w),
                     pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 sums
-__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
-                                          const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -262,39 +120,16 @@ pass1_bf16_kernel(const float* __restrict__ q, const float* __restrict__ x,
     }
     __syncthreads();
   }
-
-  // a fragment's d0/d1 are rows g (cols 2t, 2t+1), d2/d3 rows g + 8; score
-  // = 2 acc - dn per row, max over the thread's 4 rows, then over the 8 row
-  // groups (lanes that differ in bits 2-4)
-  const int r0 = d0 + wm * 32 + g;
-  const float dn00 = dn[r0], dn01 = dn[r0 + 8], dn10 = dn[r0 + 16], dn11 = dn[r0 + 24];
-  const int c = (d0 + wm * 32) / SUB;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    float m0 = fmaxf(fmaxf(2.f * acc[0][nt][0] - dn00, 2.f * acc[0][nt][2] - dn01),
-                     fmaxf(2.f * acc[1][nt][0] - dn10, 2.f * acc[1][nt][2] - dn11));
-    float m1 = fmaxf(fmaxf(2.f * acc[0][nt][1] - dn00, 2.f * acc[0][nt][3] - dn01),
-                     fmaxf(2.f * acc[1][nt][1] - dn10, 2.f * acc[1][nt][3] - dn11));
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    }
-    if (g == 0) {
-      const int col = q0 + wn * 64 + nt * 8 + 2 * t;
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(c) * nq + col) = make_float2(m0, m1);
-    }
-  }
+  store_subchunk_max(acc, SeparateNorm{dn}, out, nq, d0, q0, wm, wn, g, t);
 }
 
-using KernelFn = void (*)(const float*, const float*, const float*, float*, int, int, int);
-
-int launch(KernelFn kernel, const float* q, const float* x, const float* dn, float* out,
-           int nq, int nd, int dp, cudaStream_t stream) {
+int launch_bf16(const float* q, const float* x, const float* dn, float* out, int nq, int nd,
+                int dp, cudaStream_t stream) {
   const long long blocks = static_cast<long long>(nq / BQ) * (nd / BD);
   if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(q, x, dn, out, nq, nd, dp);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  pass1_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(q, x, dn, out, nq,
+                                                                             nd, dp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,11 +146,11 @@ extern "C" int pass1_norm_launch(const float* q, const float* x, const float* dn
   if (nq % BQ || nd % BD || dp % MBK) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
     case kBf16:
-      return launch(pass1_bf16_kernel, q, x, dn, out, nq, nd, dp, s);
+      return launch_bf16(q, x, dn, out, nq, nd, dp, s);
     case kHigh3:
-      return launch(pass1_split_kernel<kHigh3>, q, x, dn, out, nq, nd, dp, s);
+      return split_mma::launch<2>(q, x, SeparateNorm{dn}, out, nq, nd, dp, s);
     case kHighest:
-      return launch(pass1_split_kernel<kHighest>, q, x, dn, out, nq, nd, dp, s);
+      return split_mma::launch<3>(q, x, SeparateNorm{dn}, out, nq, nd, dp, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

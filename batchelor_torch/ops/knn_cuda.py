@@ -50,7 +50,7 @@ RATIO = CHUNK // SUB
 QT = 512                  # query rows are padded to a multiple of this
 DT = 1024                 # data rows are padded to a multiple of this
 SINGLE_LEVEL_MAX = 8192   # sub-chunk count up to which one flat top-k is used
-_KERNEL_TILE = 128        # rows of q and of x per CTA of csrc/chunk_max.cu
+_KERNEL_TILE = 128        # csrc/chunk_max.cu takes rows of q and x in multiples of this
 _MODES = {"bf16": 0, "split3": 1, "split6": 2}
 
 

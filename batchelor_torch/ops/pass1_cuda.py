@@ -30,7 +30,7 @@ __all__ = ["pass1_scores", "pass1_scores_plain", "pass1_operands", "PRECISIONS"]
 
 PRECISIONS = {"bf16": 0, "high3": 1, "highest": 2}
 _PARTS = {"bf16": 1, "high3": 2, "highest": 3}
-_KERNEL_TILE = 128        # rows of q and of x per CTA of csrc/pass1_norm.cu
+_KERNEL_TILE = 128        # csrc/pass1_norm.cu takes rows of q and x in multiples of this
 
 
 def pass1_operands(query: torch.Tensor, data: torch.Tensor, valid: torch.Tensor

@@ -11,7 +11,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      widths, with planted ties and -inf pads: identical values and indices;
   2. kernel K1 (chunk_max_scores) against its plain version in its three
      modes on the main path's data (N_d = 100352, dpad = 64, first 4096
-     queries): |diff| <= 2^-20 * max|s| of the query column;
+     queries): |diff| <= 2^-20 * max|s| of the query column; each split
+     mode's time over its library call's is printed;
   3. the main path: reduced_mnn on two batches of 100,000 x 50 fp32 cells
      (bench.py's simulation, seed 42), k = 20, knn_method="auto", with the
      launch counters showing that K1, K2 and K3 ran, its pairs against an
@@ -26,7 +27,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      and (k+1)-th plain scores are that close;
   6. kernel K4 (pass1_scores) against its plain version in its three
      precisions at 98304 x 98304, d = 50 (first 4096 queries, masked rows
-     give -inf), then the probe's measurement with the port: pass-1 ms per
+     give -inf; each split precision's time over its library call's is
+     printed), then the probe's measurement with the port: pass-1 ms per
      precision and the selection recall of "high3" and "bf16" against
      "highest" through the exact rescore, on every 97th query;
   7. the slice's path: fast_mnn from gene space on two batches of
@@ -34,7 +36,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      the launch counters showing K1, K2 and K3, finite corrected values, an
      orthonormal rotation, and its pairs against an "exact" run: pair-set
      Jaccard >= 0.80 for "auto" (bf16 selection loses crowded neighbours)
-     and >= 0.97 for "chunked" (fp32 selection);
+     and >= 0.97 for "chunked" (fp32 selection: K1's split3 mode), which
+     runs twice, its first run with the launch counters;
   8. the card against the CPU on bench.py config 3's options (4 batches x
      2,000 cells x 500 genes, merge tree, restrict, prop_k, randomized
      PCA): in fp64 identical pairs in every step and corrected within 1e-4
@@ -190,6 +193,11 @@ def phase_k1(torch, knn_cuda, b1, b2):
                         (x @ q[q0:q0 + 8192].T).view(nd // 32, 32, -1).amax(1)
             library_ms = cuda_ms(torch, library, 3)
         entry["library_ms"] = library_ms
+        ratio = entry["ms"] / library_ms
+        if mode != "bf16":
+            entry["ms_over_library"] = ratio
+        print(f"  K1 {mode}: {entry['ms']:.3f} ms, library {library_ms:.3f} ms, "
+              f"ratio {ratio:.3f}", flush=True)
         modes[mode] = entry
         max_err = max(max_err, entry["max_abs_err"])
         del q, x, got, want
@@ -417,8 +425,12 @@ def phase_k4(torch, np, knn_cuda, pass1_cuda):
             "library_ms": lib_bf16 if prec == "bf16" else lib_fp32,
             "max_abs_err": float(diff.max()), "max_rel_err": rel,
         }
+        ms, lib_ms = modes[prec]["ms"], modes[prec]["library_ms"]
+        if prec != "bf16":
+            modes[prec]["ms_over_library"] = ms / lib_ms
         max_err = max(max_err, modes[prec]["max_abs_err"])
-        print(f"  pass 1 {prec}: {modes[prec]['ms']:.3f} ms", flush=True)
+        print(f"  pass 1 {prec}: {ms:.3f} ms, library {lib_ms:.3f} ms, ratio {ms / lib_ms:.3f}",
+              flush=True)
     main = modes["high3"]                    # the precision the probe proposes
     entry = {
         "name": "pass1_scores", "route": "cuda", "source": "batchelor_torch/csrc/pass1_norm.cu",
@@ -465,8 +477,21 @@ def phase_fast_mnn(torch, np, bt, path_kernels):
     check(ortho <= 1e-4, f"rotation is orthonormal: |V'V - I| = {ortho:.3g} <= 1e-4")
     exact = pair_set(bt.fast_mnn(batches, d=DIMS, k=K, knn_method="exact").merge_info[0],
                      2 * N_CELLS)
-    fp32 = pair_set(bt.fast_mnn(batches, d=DIMS, k=K, knn_method="chunked").merge_info[0],
-                    2 * N_CELLS)
+    # fp32 selection: K1's split3 mode in both MNN searches, run twice
+    chunked_s = []
+    for run in ("first", "second"):
+        if run == "first":
+            zero_counts(path_kernels)
+        t0 = time.perf_counter()
+        chunked = bt.fast_mnn(batches, d=DIMS, k=K, knn_method="chunked")
+        torch.cuda.synchronize()
+        chunked_s.append(time.perf_counter() - t0)
+        if run == "first":
+            chunked_launches = read_counts(path_kernels)
+            check(all(v > 0 for v in chunked_launches.values()),
+                  f"'chunked': K1 (split3), K2 and K3 ran: {chunked_launches}")
+        print(f"  'chunked' {run} run: {chunked_s[-1]:.3f} s", flush=True)
+    fp32 = pair_set(chunked.merge_info[0], 2 * N_CELLS)
     a = pair_set(res.merge_info[0], 2 * N_CELLS)
     jaccard = np.intersect1d(a, exact).size / np.union1d(a, exact).size
     jaccard_fp32 = np.intersect1d(fp32, exact).size / np.union1d(fp32, exact).size
@@ -479,9 +504,10 @@ def phase_fast_mnn(torch, np, bt, path_kernels):
           f"'auto' pairs vs 'exact': Jaccard {jaccard:.5f} >= {FAST_AUTO_JACCARD_MIN}")
     check(jaccard_fp32 >= PAIR_JACCARD_MIN,
           f"'chunked' pairs vs 'exact': Jaccard {jaccard_fp32:.5f} >= {PAIR_JACCARD_MIN}")
-    return launches, {
+    return launches, chunked_launches, {
         "path": f"fast_mnn 2x{N_CELLS}x{GENES} d={DIMS} k={K} auto",
         "seconds": runs[0]["seconds"], "seconds_second_run": runs[1]["seconds"],
+        "seconds_chunked": chunked_s[0], "seconds_chunked_second_run": chunked_s[1],
         "cells_per_s": runs[0]["cells_per_s"], "cells_per_s_second_run": runs[1]["cells_per_s"],
         "split_first_run": {k: runs[0][k] for k in ("cosine_norm_s", "pca_s", "merge_s")},
         "split_second_run": {k: runs[1][k] for k in ("cosine_norm_s", "pca_s", "merge_s")},
@@ -555,13 +581,14 @@ def main():
     phase_card_vs_cpu(torch, np, bt)
     k3 = phase_k3(torch, knn_cuda, rescore_cuda, topk_cuda, b1, b2)
     k4, probe = phase_k4(torch, np, knn_cuda, pass1_cuda)
-    fast_launches, fast_line = phase_fast_mnn(torch, np, bt, path_kernels)
+    fast_launches, chunked_launches, fast_line = phase_fast_mnn(torch, np, bt, path_kernels)
     config3 = phase_config3_card_vs_cpu(torch, np, bt)
 
     for entry in (k1, k2, k3):
         entry["launches"] = launches[entry["name"]]
         entry["launches_by_path"] = {"reduced_mnn": launches[entry["name"]],
-                                     "fast_mnn": fast_launches[entry["name"]]}
+                                     "fast_mnn": fast_launches[entry["name"]],
+                                     "fast_mnn_chunked": chunked_launches[entry["name"]]}
     k4["launches_by_path"] = {"pass1_precision_probe": k4["launches"]}
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(json.dumps({"main_path": "reduced_mnn 2x100000x50 k=20 auto",

@@ -52,14 +52,15 @@ def test_topk_rows_kernel_rejects_what_it_cannot_take(card):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "fp32", "six_pass"])
-@pytest.mark.parametrize("d0", [50, 100])
+@pytest.mark.parametrize("d0", [50, 100, 200])
 def test_chunk_max_kernel_matches_plain(mode, d0, card):
+    # dpad 64, 128 and 256: one, two and four 64-feature steps
     query = torch.randn(300, d0, device="cuda", generator=card)
     data = torch.randn(3000, d0, device="cuda", generator=card) + 0.5
     valid = torch.ones(3000, dtype=torch.bool, device="cuda")
     valid[1000:1100] = False
     q, x = knn_cuda._pass1_operands(query, data, valid, bf16=mode == "bf16")
-    assert q.shape[1] == (64 if d0 <= 62 else 128)
+    assert q.shape[1] == {50: 64, 100: 128, 200: 256}[d0]
     six = mode == "six_pass"
     got = knn_cuda.chunk_max_scores(q, x, six)
     want = knn_cuda.chunk_max_scores_plain(q, x, six)
@@ -132,14 +133,15 @@ def test_rescore_subchunks_kernel_rejects_what_it_cannot_take(card):
 
 
 @pytest.mark.parametrize("precision", ["bf16", "high3", "highest"])
-@pytest.mark.parametrize("d0", [50, 100])
+@pytest.mark.parametrize("d0", [50, 100, 250])
 def test_pass1_scores_kernel_matches_plain(precision, d0, card):
+    # dpad 64, 128 and 256: one, two and four 64-feature steps
     query = torch.randn(300, d0, device="cuda", generator=card)
     data = torch.randn(3000, d0, device="cuda", generator=card) + 0.5
     valid = torch.ones(3000, dtype=torch.bool, device="cuda")
     valid[1000:1100] = False
     q, x, dn = pass1_cuda.pass1_operands(query, data, valid)
-    assert q.shape[1] == (64 if d0 <= 64 else 128)
+    assert q.shape[1] == {50: 64, 100: 128, 250: 256}[d0]
     before = pass1_cuda.pass1_scores.launches
     got = pass1_cuda.pass1_scores(q, x, dn, precision)
     want = pass1_cuda.pass1_scores_plain(q, x, dn, precision)
@@ -150,3 +152,62 @@ def test_pass1_scores_kernel_matches_plain(precision, d0, card):
     scale = torch.where(masked, 0.0, want.abs()).amax(0, keepdim=True)
     diff = torch.where(masked, 0.0, got - want).abs()
     assert bool((diff <= 2.0 ** -20 * scale).all())
+
+
+def _within_column_bound(got, want):
+    """|got - want| <= 2^-20 of each query column's max |score|; -inf (K4's
+    masked rows) and K1's 1e30 sentinel entries must match themselves."""
+    inf = torch.isinf(want)
+    assert torch.equal(inf, torch.isinf(got))
+    sentinel = inf | (want.abs() > 1e29)
+    scale = torch.where(sentinel, 0.0, want.abs()).amax(0, keepdim=True)
+    bound = torch.where(sentinel & ~inf, want.abs(), scale) * 2.0 ** -20
+    diff = torch.where(inf, 0.0, got - want).abs()
+    assert bool((diff <= bound).all()), float((diff / bound).max())
+
+
+@pytest.mark.parametrize("split", ["K1 fp32", "K1 six_pass", "K4 high3", "K4 highest"])
+@pytest.mark.parametrize("query_tiles", [1, 3, 6, 21])
+def test_split_modes_on_query_counts_off_the_walk(split, query_tiles, card):
+    # 128-query tiles that the split kernels' query walk (16 tiles of 128
+    # queries, or of 64 with six_pass) does not divide; 21 takes several
+    # walks, the last one short
+    nq = 128 * query_tiles
+    query = torch.randn(nq, 50, device="cuda", generator=card)
+    data = torch.randn(1024, 50, device="cuda", generator=card) + 0.5
+    valid = torch.ones(1024, dtype=torch.bool, device="cuda")
+    valid[200:300] = False
+    if split.startswith("K1"):
+        q, x = knn_cuda._pass1_operands(query, data, valid)
+        q, six = q[:nq].contiguous(), split.endswith("six_pass")
+        got = knn_cuda.chunk_max_scores(q, x, six)
+        want = knn_cuda.chunk_max_scores_plain(q, x, six)
+    else:
+        q, x, dn = pass1_cuda.pass1_operands(query, data, valid)
+        q, prec = q[:nq].contiguous(), split.split()[1]
+        got = pass1_cuda.pass1_scores(q, x, dn, prec)
+        want = pass1_cuda.pass1_scores_plain(q, x, dn, prec)
+    torch.cuda.synchronize()
+    assert got.shape == (1024 // 32, nq)
+    _within_column_bound(got, want)
+
+
+@pytest.mark.parametrize("exact_selection", [False, True])
+def test_chunked_selection_near_ties_on_the_card(exact_selection, card):
+    # tests/test_knn_backends.py's adversarial geometry: rows on a ray at
+    # radii 10 + i * 1e-3, the query at radius 9, so neighbouring scores
+    # differ by ~2e-3 at a magnitude of ~100; fp32 selection (3 or 6 split
+    # products) must still rank them as the exact search does
+    rng = np.random.default_rng(42)
+    u = rng.normal(size=8)
+    u /= np.linalg.norm(u)
+    radii = 10.0 + 1e-3 * rng.permutation(1024)
+    x = torch.from_numpy((radii[:, None] * u[None, :]).astype(np.float32)).cuda()
+    q = torch.from_numpy(np.tile((9.0 * u).astype(np.float32), (16, 1))).cuda()
+    before = knn_cuda.chunk_max_scores.launches
+    ref = query_knn(q, x, 4, method="exact")
+    out = query_knn(q, x, 4, method="chunked", exact_selection=exact_selection)
+    assert knn_cuda.chunk_max_scores.launches == before + 1
+    assert out.indices.device.type == "cuda"
+    assert torch.equal(out.indices, ref.indices)
+    assert torch.allclose(out.distances, ref.distances, rtol=0.0, atol=1e-5)

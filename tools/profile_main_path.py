@@ -3,17 +3,20 @@
 
     python3 tools/profile_main_path.py [--n 100000] [--genes 2000]
                                        [--paths reduced_mnn,fast_mnn] [--trace trace.json]
+                                       [--knn-method auto]
 
 Runs each path twice in one process, each run under torch.profiler: the
 first run pays the process's first-use costs, the second is the steady
 state. reduced_mnn runs on two n x 50 fp32 batches, fast_mnn on two
 n x genes batches from gene space (d = 50); both with chip_smoke.py's
-simulation (seed 42), k = 20 and knn_method="auto". For each run it prints
-the wall seconds, the summed device time of the kernels and the device's
-idle share (1 - device time / wall time), the kernels by device time, the
-host operations by self host time, and the host time of each span; with
---trace it also writes the last run's Chrome trace. Ends with the card's
-name and power limit. The kernels are built before the first run.
+simulation (seed 42), k = 20 and knn_method="auto" (or --knn-method, e.g.
+"chunked": fp32 selection through K1's split3 mode). For each run it
+prints the wall seconds, the summed device time of the kernels and the
+device's idle share (1 - device time / wall time), the kernels by device
+time, the host operations by self host time, and the host time of each
+span; with --trace it also writes the last run's Chrome trace. Ends with
+the card's name and power limit. The kernels are built before the first
+run.
 """
 import argparse
 import json
@@ -42,6 +45,7 @@ def main():
     ap.add_argument("--genes", type=int, default=2_000)
     ap.add_argument("--paths", default="reduced_mnn,fast_mnn")
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--knn-method", default="auto", choices=["auto", "chunked", "bf16", "exact"])
     args = ap.parse_args()
     build_s = _build.build()
     print(json.dumps({"build_s": build_s}), flush=True)
@@ -62,7 +66,7 @@ def main():
             rec = bt.MetricsRecorder()
             with torch.profiler.profile(activities=acts) as prof, rec.activate():
                 t0 = time.perf_counter()
-                entry(batches, k=20, knn_method="auto", **kw)
+                entry(batches, k=20, knn_method=args.knn_method, **kw)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             events = prof.key_averages()
@@ -73,7 +77,7 @@ def main():
                        and not e.key.startswith(("aten::", "fastmnn/"))]
             kernels.sort(key=device_us, reverse=True)
             device_s = sum(device_us(e) for e in kernels) / 1e6
-            tag = {"path": path, "run": run}
+            tag = {"path": path, "knn_method": args.knn_method, "run": run}
             print(json.dumps({**tag, "n": args.n, "width": width, "wall_s": wall,
                               "device_s": device_s, "device_idle_share": 1.0 - device_s / wall}),
                   flush=True)
