@@ -130,7 +130,10 @@ def chunk_max_scores(q: torch.Tensor, x: torch.Tensor, six_pass: bool = False) -
     ``q``/``x`` come as ``_prep_pass1`` leaves them: padded rows, norms
     folded into the last two feature columns, both fp32 (3-product split,
     or 6 products with ``six_pass``) or both bf16 (one product). A CPU
-    tensor takes the plain version."""
+    tensor takes the plain version. On the card the bf16 kernel stores the
+    maxima query-major, (N_q, N_d/32), and the result is its ``.t()`` view,
+    so ``_select_subchunks`` reads its rows without a copy; the fp32 modes
+    return a contiguous (N_d/32, N_q) matrix."""
     _check_pass1_inputs(q, x)
     if q.device.type == "cpu":
         return chunk_max_scores_plain(q, x, six_pass)
@@ -140,19 +143,19 @@ def chunk_max_scores(q: torch.Tensor, x: torch.Tensor, six_pass: bool = False) -
         raise ValueError("chunk_max_scores kernel needs contiguous inputs")
     nq, dp = q.shape
     nd = x.shape[0]
-    if q.dtype == torch.bfloat16:
-        mode = _MODES["bf16"]
-    else:
-        mode = _MODES["split6" if six_pass else "split3"]
-    out = torch.empty((nd // SUB, nq), device=q.device, dtype=torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    mode = _MODES["bf16" if bf16 else ("split6" if six_pass else "split3")]
+    shape = (nq, nd // SUB) if bf16 else (nd // SUB, nq)
+    out = torch.empty(shape, device=q.device, dtype=torch.float32)
     fn = _launch_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), x.data_ptr(), out.data_ptr(), nq, nd, dp, mode, stream)
     if err != 0:
-        raise RuntimeError(f"chunk_max_scores kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"chunk_max_scores kernel launch failed: error {err} (a cudaError_t; "
+                           f"10000 + a CUresult when the bf16 kernel's tensor map fails)")
     chunk_max_scores.launches += 1
-    return out
+    return out.t() if bf16 else out
 
 
 chunk_max_scores.launches = 0
@@ -204,7 +207,7 @@ def _select_subchunks(m_t: torch.Tensor, k: int) -> torch.Tensor:
     c128 = c32 // RATIO
     kc = min(k, c128)
     ks = min(k, RATIO * kc)
-    m32 = m_t.t().contiguous()                           # (nq, C32)
+    m32 = m_t.t().contiguous()     # (nq, C32); no copy for the bf16 kernel's view
     if c32 <= SINGLE_LEVEL_MAX:
         return select_topk(m32, ks)[1].long()
     c128p = max(_round_up(c128, 128), 128)

@@ -53,6 +53,25 @@ def test_chunk_max_plain_matches_jax_kernel(mode, d0, rng):
     assert _within_bound(got, want)
 
 
+@pytest.mark.parametrize("c32", [96, 8448])
+def test_select_subchunks_same_ids_for_both_layouts(c32, rng):
+    """On the card the bf16 kernel returns its (C32, nq) maxima as the .t()
+    view of a query-major matrix, the fp32 modes a contiguous data-major one;
+    the selection gives the same ids for both, in the flat regime (C32 = 96)
+    and through the 128-chunk hierarchy (C32 = 8448)."""
+    nq = 16
+    m = rng.normal(size=(c32, nq)).astype(np.float32)
+    m[7] = m[5]                                   # ties between sub-chunks
+    m[40:44] = m[0:4]                             # and between whole chunks
+    data_major = torch.from_numpy(m)
+    query_major = torch.from_numpy(np.ascontiguousarray(m.T)).t()
+    assert query_major.t().is_contiguous() and not query_major.is_contiguous()
+    assert torch.equal(query_major, data_major)
+    got = knn_cuda._select_subchunks(query_major, 20)
+    want = knn_cuda._select_subchunks(data_major, 20)
+    assert got.shape == (nq, 20) and torch.equal(got, want)
+
+
 def test_pass1_operands_fold_norms(rng):
     """The folded columns carry (dn_hi, dn_lo) and (-0.5, -0.5), and masked or
     padding rows carry the finite sentinel 1e30."""

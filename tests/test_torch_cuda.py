@@ -70,6 +70,39 @@ def test_chunk_max_kernel_matches_plain(mode, d0, card):
     assert bool(((got - want).abs() <= 2.0 ** -20 * scale).all())
 
 
+@pytest.mark.parametrize("dp,d0", [(64, 50), (128, 100), (256, 200), (512, 400)])
+@pytest.mark.parametrize("nd", [128, 384, 3072])
+@pytest.mark.parametrize("nq", [128, 640])
+def test_chunk_max_bf16_kernel_on_ragged_tiles(dp, d0, nd, nq, card):
+    # the bf16 kernel's data tiles hold 256 rows: nd = 128 and 384 leave a
+    # last tile half past nd (read as zeros, which score 0 and must never be
+    # stored); nq = 640 is 5 pairs of 64-query tiles, which the split of the
+    # queries over the SMs does not divide evenly; dp = 512 streams the data
+    # tile's k-blocks beside the query k-blocks instead of keeping it.
+    # Queries lie apart from the data, as on the main path, so each column's
+    # max |s| reaches the size of the summed terms (|x|^2 ~ 1.25 d0): with 3
+    # sub-chunks of queries amid the data it can fall to ~8 against terms of
+    # ~31, where any fp32 order of the sums misses 2^-20 of it
+    query = 0.5 * torch.randn(nq, d0, device="cuda", generator=card)
+    data = torch.randn(nd, d0, device="cuda", generator=card) + 0.5
+    data[40] = data[33]                      # a tie inside sub-chunk 1
+    data[nd - 1] = data[nd - 20]             # and inside the last sub-chunk
+    valid = torch.ones(nd, dtype=torch.bool, device="cuda")
+    valid[64:96] = False                     # sub-chunk 2: sentinel rows only
+    valid[nd - 5] = False
+    q, x = knn_cuda._pass1_operands(query, data, valid, bf16=True)
+    assert q.shape[1] == dp
+    q, x = q[:nq], x[:nd]
+    before = knn_cuda.chunk_max_scores.launches
+    got = knn_cuda.chunk_max_scores(q, x)
+    want = knn_cuda.chunk_max_scores_plain(q, x)
+    torch.cuda.synchronize()
+    assert knn_cuda.chunk_max_scores.launches == before + 1
+    assert got.shape == (nd // 32, nq) and got.t().is_contiguous()
+    assert bool(torch.isfinite(got).all()) and bool((got[2] < -1e29).all())
+    _within_column_bound(got, want)
+
+
 @pytest.mark.parametrize("method", ["exact", "chunked", "bf16"])
 def test_query_knn_card_matches_cpu(method, card):
     rng = np.random.default_rng(3)
