@@ -7,9 +7,10 @@ columns of a row are distinct, also among equal values and when fewer than
 k finite entries remain (``lax.top_k``'s rule). The two-pass kNN's
 exactness argument needs the distinct columns (``knn_cuda.py``).
 
-On a CUDA tensor the wrapper launches ``csrc/topk_rows.cu``; on a CPU
-tensor it uses the plain version, a stable descending sort. ``torch.topk``
-does not promise the tie rule.
+On a CUDA tensor the wrapper launches ``csrc/topk_rows.cu`` (one warp per
+row streaming it once, so rows of any width); on a CPU tensor it uses the
+plain version, a stable descending sort. ``torch.topk`` does not promise
+the tie rule.
 
 The reference kernel repeats a column once a row has fewer than k entries
 above -inf (it masks a taken column with -inf, which a -inf column already
@@ -25,11 +26,10 @@ import torch
 
 from .. import _build
 
-__all__ = ["topk_rows", "topk_rows_plain", "select_topk", "MAX_K", "MAX_WIDTH"]
+__all__ = ["topk_rows", "topk_rows_plain", "select_topk", "MAX_K"]
 
 MAX_K = 64
-# the row and one "taken" byte per column live in shared memory (227 KB)
-MAX_WIDTH = (227 * 1024 - 1024) // 5
+_INT32_MAX = 2**31 - 1
 
 
 def topk_rows_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -48,8 +48,9 @@ def _launch_fn():
 def topk_rows(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, int32 columns) of the k largest entries of each row, descending.
 
-    ``x``: (N, W) fp32, contiguous, no NaN; 1 <= k <= min(64, W) and
-    W <= MAX_WIDTH on the card. A CPU tensor takes the plain version."""
+    ``x``: (N, W) fp32, contiguous, no NaN; 1 <= k <= min(64, W) on the
+    card, any W that int32 columns can name. A CPU tensor takes the plain
+    version."""
     if x.dim() != 2:
         raise ValueError(f"topk_rows needs a 2-D matrix, got shape {tuple(x.shape)}")
     n, w = x.shape
@@ -61,8 +62,11 @@ def topk_rows(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"topk_rows runs on CUDA or CPU tensors, not {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"topk_rows kernel takes float32, got {x.dtype}")
-    if k > MAX_K or w > MAX_WIDTH:
-        raise ValueError(f"topk_rows kernel takes k <= {MAX_K} and W <= {MAX_WIDTH}")
+    if k > MAX_K:
+        raise ValueError(f"topk_rows kernel takes k <= {MAX_K}")
+    if max(n, w) > _INT32_MAX:
+        raise ValueError(f"topk_rows kernel takes N and W below 2^31 (int32 columns), "
+                         f"got {n} x {w}")
     if not x.is_contiguous():
         raise ValueError("topk_rows kernel needs a contiguous matrix")
     vals = torch.empty((n, k), device=x.device, dtype=torch.float32)

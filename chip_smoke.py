@@ -8,7 +8,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   0. build every kernel under batchelor_torch/csrc (one nvcc per source,
      all started together);
   1. kernel K2 (topk_rows) against its plain version at the main path's
-     widths, with planted ties and -inf pads: identical values and indices;
+     shapes, with planted ties and -inf pads, and on rows with fewer finite
+     entries than k, rows of 60,000 columns, ascending and all-equal rows:
+     identical values and indices;
   2. kernel K1 (chunk_max_scores) against its plain version in its three
      modes on the main path's data (N_d = 100352, dpad = 64, first 4096
      queries): |diff| <= 2^-20 * max|s| of the query column, and the bf16
@@ -106,6 +108,23 @@ def check(cond, what):
     print(f"  ok: {what}", flush=True)
 
 
+K2_TIMED = ((100352, 3136), (100000, 640), (16384, 8212), (16384, 640))
+
+
+def k2_input(torch, gen, n, w):
+    """K2's timed input: normal rows with planted ties and -inf pad columns."""
+    x = torch.randn(n, w, device="cuda", generator=gen)
+    x[:, [7, 100, w - 40]] = 6.0                          # planted ties
+    x[::7, 11] = 6.0
+    x[:, w - 30:] = float("-inf")                          # pad columns
+    return x
+
+
+def k2_bound_ms(n, w, k):
+    """Each row read once, k values and columns written, at HBM's rate."""
+    return (n * w * 4 + n * k * 8) / HBM_BYTES_PER_S * 1e3
+
+
 def phase_k2(torch, topk_cuda):
     """K2 against its plain version; returns the kernel's entry."""
     print("phase 1: topk_rows (K2) against its plain version", flush=True)
@@ -114,13 +133,12 @@ def phase_k2(torch, topk_cuda):
     max_err = 0.0
     few = torch.full((8, 200), float("-inf"), device="cuda")
     few[:, 7], few[:, 5] = 2.0, 1.0                      # fewer finite than k
-    cases = [(few, 4)]
-    for n, w in ((100352, 3136), (16384, 8212), (16384, 640)):
-        x = torch.randn(n, w, device="cuda", generator=gen)
-        x[:, [7, 100, w - 40]] = 6.0                      # planted ties
-        x[::7, 11] = 6.0
-        x[:, w - 30:] = float("-inf")                      # pad columns
-        cases.append((x, K))
+    wide = torch.randn(8, 60000, device="cuda", generator=gen)
+    wide[:, 50000:] = 4.0                                 # ties past the old width cap
+    ascending = torch.arange(3136, device="cuda", dtype=torch.float32).repeat(4, 1)
+    cases = [(few, 4), (wide, K), (wide, 64), (ascending, K),
+             (torch.ones(5, 3136, device="cuda"), 64)]
+    cases += [(k2_input(torch, gen, n, w), K) for n, w in K2_TIMED]
     for x, k in cases:
         v, i = topk_cuda.topk_rows(x, k)
         pv, pi = topk_cuda.topk_rows_plain(x, k)
@@ -128,16 +146,15 @@ def phase_k2(torch, topk_cuda):
         check(torch.equal(v, pv) and torch.equal(i, pi),
               f"K2 {tuple(x.shape)} k={k}: values and indices identical")
         max_err = max(max_err, float((v - pv).abs().nan_to_num(0.0).max()))
-        if x.shape[0] < 1000:
+        if tuple(x.shape) not in K2_TIMED:
             continue
         n, w = x.shape
-        nbytes = n * w * 4 + n * k * 8
         entries.append({
             "shape": [n, w],
             "ms": cuda_ms(torch, lambda: topk_cuda.topk_rows(x, k), 10),
             "plain_ms": cuda_ms(torch, lambda: topk_cuda.topk_rows_plain(x, k), 3),
             "library_ms": cuda_ms(torch, lambda: torch.topk(x, k, dim=1), 10),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": k2_bound_ms(n, w, k),
         })
     main = entries[0]
     return {

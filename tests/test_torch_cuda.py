@@ -29,10 +29,57 @@ def card():
 @pytest.mark.parametrize("n,w,k", [(3, 20, 20), (5, 40, 4), (77, 384, 9), (300, 512, 13),
                                    (64, 20000, 64)])
 def test_topk_rows_kernel_matches_plain(n, w, k, card):
-    # (64, 20000) needs 100 KB of dynamic shared memory (above the 48 KB default)
+    # k = 64 keeps two list entries a lane
     x = torch.randn(n, w, device="cuda", generator=card)
     x[:, 1] = x[:, w - 1] = 3.0
     x[::2, w // 2:] = float("-inf")
+    before = topk_cuda.topk_rows.launches
+    v, i = topk_cuda.topk_rows(x, k)
+    pv, pi = topk_cuda.topk_rows_plain(x, k)
+    torch.cuda.synchronize()
+    assert topk_cuda.topk_rows.launches == before + 1
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+def _k2_rows(n, w, k, gen):
+    """n rows of width w that cycle through seven kinds: normal with planted
+    ties, all equal, fewer finite entries than k, all -inf, ascending, a
+    merge row (k sorted high values, then a tile holding a copy of the k-th)
+    and normal with an -inf pad."""
+    x = torch.randn(n, w, device="cuda", generator=gen)
+    for r in range(n):
+        kind = r % 7
+        if kind == 0:
+            x[r, [w // 3, w // 2, w - 1]] = 3.0
+        elif kind == 1:
+            x[r] = 1.5
+        elif kind in (2, 3):
+            x[r] = float("-inf")
+            if kind == 2:
+                few = torch.randperm(w, device="cuda", generator=gen)[:(k - 1) // 2]
+                x[r, few] = torch.randn(few.numel(), device="cuda", generator=gen)
+        elif kind == 4:
+            x[r] = torch.arange(w, device="cuda", dtype=torch.float32)
+        elif kind == 5:
+            m = min(k, w)
+            x[r, :m] = 10.0 - 0.25 * torch.arange(m, device="cuda", dtype=torch.float32)
+            x[r, w - 1] = x[r, m - 1]
+        else:
+            x[r, w - w // 4:] = float("-inf")
+    return x
+
+
+@pytest.mark.parametrize("n,w,k", [
+    (n, w, k)
+    for n, w in ((13, 1), (13, 31), (13, 33), (13, 640), (13, 3136), (13, 8205), (13, 8212),
+                 (8, 60000), (7, 250000))
+    for k in (1, 20, 64) if k <= w])
+def test_topk_rows_kernel_on_any_width(n, w, k, card):
+    # widths below, at and past a 32-column step; W = 8205 (13 + 8192) starts
+    # rows off a 16-byte boundary; 60,000 and 250,000 columns are wider than
+    # a row in an SM's shared memory (the old kernel's cap, 46,284). n = 13
+    # and 7 leave the last CTA's eight warps partly without a row.
+    x = _k2_rows(n, w, k, card)
     before = topk_cuda.topk_rows.launches
     v, i = topk_cuda.topk_rows(x, k)
     pv, pi = topk_cuda.topk_rows_plain(x, k)
@@ -122,9 +169,11 @@ def test_entry_points_default_to_the_card(card):
     assert res.indices.device.type == "cuda"
 
 
-@pytest.mark.parametrize("c32", [3136, 8448])
+@pytest.mark.parametrize("c32", [3136, 8448, 196608])
 def test_select_subchunks_card_matches_cpu(c32, card):
-    m_t = torch.randn(c32, 1024, device="cuda", generator=card)
+    # 196608 sub-chunks (6.3M data rows): the chunk top-k runs over 49,152
+    # columns, past the old kernel's width cap; a few hundred queries
+    m_t = torch.randn(c32, 300 if c32 > 10000 else 1024, device="cuda", generator=card)
     got = knn_cuda._select_subchunks(m_t, 20)
     want = knn_cuda._select_subchunks(m_t.cpu(), 20)
     assert torch.equal(got.cpu(), want)

@@ -148,17 +148,21 @@ def test_two_pass_query_pieces_match_single_piece(rng):
     assert only.distances is None and torch.equal(only.indices, ref.indices)
 
 
-@pytest.mark.parametrize("c32", [3136, 8448])
+@pytest.mark.parametrize("c32", [3136, 8448, 196608])
 def test_select_subchunks_matches_jax_both_regimes(c32, rng):
     """Sub-chunk selection from the same pass-1 maxima: the flat regime
     (C32 <= 8192) and the 128-chunk -> sub-chunk hierarchy with -inf chunk
     padding (8448 sub-chunks = 2112 chunks, padded to 2176). The k-distinct
-    argument makes the hierarchy's choice equal the flat top-k."""
+    argument makes the hierarchy's choice equal the flat top-k. 196608
+    sub-chunks (6.3M data rows) give a chunk top-k over 49,152 columns, as
+    wide as a search over that many rows makes it; a few queries keep it
+    quick."""
     from batchelor_torch.ops import knn_cuda
     from batchelor_tpu.ops import knn_pallas
 
+    nq = 8 if c32 > 10000 else 512
     # negative like real scores, so a padding chunk that is not -inf would win
-    m_t = (-np.abs(rng.normal(size=(c32, 512))) - 1.0).astype(np.float32)
+    m_t = (-np.abs(rng.normal(size=(c32, nq))) - 1.0).astype(np.float32)
     want = np.asarray(knn_pallas._select_subchunks(jnp.asarray(m_t), 20, interpret=True)).T
     got = knn_cuda._select_subchunks(torch.from_numpy(m_t), 20).numpy()
     assert np.array_equal(want, got)

@@ -31,16 +31,18 @@ def _case(name, rng):
         return rng.normal(size=(77, 384)).astype(np.float32), 9
     # the main path's widths: flat sub-chunk selection at 2 x 100k cells
     # (W = 3136) and the running merge of the tiled search (W = 20 + 8192),
-    # with planted ties and -inf pad columns
-    w = 3136 if name == "width_3136" else 8212
-    x = rng.normal(size=(12, w)).astype(np.float32)
+    # with planted ties and -inf pad columns; and the chunk top-k of a
+    # two-pass search over ~6.3M data rows (W = 50,000), wider than a row
+    # in an SM's shared memory
+    w = int(name.split("_")[1])
+    x = rng.normal(size=(12 if w < 10000 else 5, w)).astype(np.float32)
     x[:, [7, 100, w - 40]] = 5.0
     x[:, w - 30:] = -np.inf
     return x, 20
 
 
 CASES = ["random", "all_zero_ties", "duplicated_maxima", "uneven_rows",
-         "width_3136", "width_8212"]
+         "width_3136", "width_8212", "width_50000"]
 
 
 @pytest.mark.parametrize("name", CASES)
