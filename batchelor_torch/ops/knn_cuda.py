@@ -39,7 +39,8 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..device import full_fp32_matmul
-from .rescore_cuda import rescore_subchunks
+from .rescore_cuda import (SCRATCH_BYTES_PER_SLOT, SCRATCH_BYTES_PER_SUBCHUNK,
+                           rescore_subchunks)
 from .topk_cuda import select_topk
 
 __all__ = ["chunk_max_scores", "chunk_max_scores_plain", "query_knn_two_pass"]
@@ -238,13 +239,14 @@ def _rescore_chunks(query: torch.Tensor, data3: torch.Tensor, dn2: torch.Tensor,
                     top_sub: torch.Tensor, k: int, with_scores: bool, max_bytes: int):
     """Rescore the selected sub-chunks in full fp32 (kernel K3's counterpart,
     ``rescore_subchunks``, which never stores the gathered blocks) and take
-    the top k, in query tiles that bound the (T, ks * SUB) score block by
-    ``max_bytes``. Returns (indices (nq, k) int64, squared distances or
-    None)."""
+    the top k, in query tiles that bound the (T, ks * SUB) score block and
+    the kernel's scratch by ``max_bytes``. Returns (indices (nq, k) int64,
+    squared distances or None)."""
     q = query.float()
     nq = q.shape[0]
     ks = top_sub.shape[1]
-    tile = max(1, max_bytes // (ks * SUB * 4))
+    budget = max_bytes - SCRATCH_BYTES_PER_SUBCHUNK * (data3.shape[0] + 1)
+    tile = max(1, budget // (ks * (SUB * 4 + SCRATCH_BYTES_PER_SLOT)))
     idxs, vals = [], []
     for t0 in range(0, nq, tile):
         ct = top_sub[t0:t0 + tile]

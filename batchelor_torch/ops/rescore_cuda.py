@@ -12,7 +12,11 @@ in fp32 sums, and the gathered blocks never reach device memory.
 ``gather_subchunks_plain`` is K3's own contract (``data3[top_sub]``), and
 ``rescore_subchunks_plain`` the gather + batched product that the kernel
 replaces. On a CUDA tensor ``rescore_subchunks`` launches
-``csrc/rescore_chunks.cu``; on a CPU tensor it uses the plain version.
+``csrc/rescore_chunks.cu``, which sorts the (query, rank) slots by
+sub-chunk on the card and stages each selected sub-chunk once per 64 slots
+that chose it (``tools/k3_emulate.py`` models it on the CPU), or, when the
+slots are too few a sub-chunk to share blocks, rescores query by query; on
+a CPU tensor it uses the plain version.
 """
 from __future__ import annotations
 
@@ -73,8 +77,28 @@ def rescore_subchunks_plain(q: torch.Tensor, data3: torch.Tensor, dn2: torch.Ten
 def _launch_fn():
     return _build.kernel_function(
         "rescore_chunks", "rescore_subchunks_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
+
+
+SCRATCH_BYTES_PER_SLOT = 12      # a sorting call's scratch: the (slot, sub-chunk)
+SCRATCH_BYTES_PER_SUBCHUNK = 8   # pairs and ranks, and the bucket counts and offsets
+
+
+def workspace_ints(nq: int, ks: int, c32: int) -> int:
+    """int32 scratch of one kernel call that sorts the slots: the (slot,
+    sub-chunk) pairs sorted by sub-chunk, each slot's rank in its bucket, the
+    bucket counts and their offsets."""
+    return (SCRATCH_BYTES_PER_SLOT * nq * ks + SCRATCH_BYTES_PER_SUBCHUNK * (c32 + 1)) // 4
+
+
+def kernel_plan(nq: int, ks: int, c32: int) -> tuple[bool, int]:
+    """(whether a kernel call of these shapes sorts the slots by sub-chunk,
+    the sorted slots of a work item), as the kernel's library decides."""
+    fn = _build.kernel_function("rescore_chunks", "rescore_subchunks_sorts",
+                                [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    p = ctypes.c_int(0)
+    return bool(fn(nq, ks, c32, ctypes.byref(p))), p.value
 
 
 def rescore_subchunks(q: torch.Tensor, data3: torch.Tensor, dn2: torch.Tensor,
@@ -82,7 +106,9 @@ def rescore_subchunks(q: torch.Tensor, data3: torch.Tensor, dn2: torch.Tensor,
     """(nq, ks * SUB) fp32 scores ``2 q_i.x_r - dn_r`` of the rows of each
     query's selected sub-chunks, sub-chunk by sub-chunk in ``top_sub``'s
     order. ``top_sub`` ids must lie in [0, C32). A CPU tensor takes the
-    plain version."""
+    plain version. On the card the call makes four launches (a memset and
+    three kernels), or one where the slots are few a sub-chunk
+    (``kernel_plan``), and reads nothing back to the host."""
     _check(q, data3, dn2, top_sub)
     if q.device.type == "cpu":
         return rescore_subchunks_plain(q, data3, dn2, top_sub)
@@ -90,18 +116,26 @@ def rescore_subchunks(q: torch.Tensor, data3: torch.Tensor, dn2: torch.Tensor,
         raise ValueError(f"rescore_subchunks runs on CUDA or CPU tensors, not {q.device}")
     if not all(t.is_contiguous() for t in (q, data3, dn2, top_sub)):
         raise ValueError("rescore_subchunks kernel needs contiguous inputs")
-    if data3.data_ptr() % 16:
-        raise ValueError("rescore_subchunks kernel needs 16-byte aligned data3")
+    if data3.data_ptr() % 16 or dn2.data_ptr() % 16:
+        raise ValueError("rescore_subchunks kernel needs 16-byte aligned data3 and dn2")
     nq, d = q.shape
+    c32 = data3.shape[0]
     ks = top_sub.shape[1]
+    if nq * ks >= 2 ** 31:
+        raise ValueError(f"rescore_subchunks kernel takes fewer than 2^31 slots, got "
+                         f"{nq} x {ks}; rescore in query tiles")
     out = torch.empty((nq, ks * SUB), device=q.device, dtype=torch.float32)
     if nq == 0 or ks == 0:
         return out
+    sorts, _ = kernel_plan(nq, ks, c32)
+    work = (torch.empty(workspace_ints(nq, ks, c32), device=q.device, dtype=torch.int32)
+            if sorts else None)
     fn = _launch_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), data3.data_ptr(), dn2.data_ptr(), top_sub.data_ptr(),
-                 out.data_ptr(), nq, ks, d, stream)
+                 out.data_ptr(), None if work is None else work.data_ptr(), nq, ks, d, c32,
+                 stream)
     if err != 0:
         raise RuntimeError(f"rescore_subchunks kernel launch failed: cudaError {err}")
     rescore_subchunks.launches += 1

@@ -27,7 +27,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      path's data and sub-chunk selection (100,000 queries, ks = 20, d = 50):
      the gather identical to the CPU's, scores within 2^-20 * max|s| of the
      row, and K2's top-k sets of both identical except on rows whose k-th
-     and (k+1)-th plain scores are that close;
+     and (k+1)-th plain scores are that close; the selection's bucket
+     statistics (slots per sub-chunk, segments per 64-slot item); then the
+     same bound with uniform ids over 196,608 sub-chunks (a 1.26 GB data3,
+     past the L2) on 4,096 queries (too few slots a sub-chunk to sort: one
+     warp a query) and 32,768 (sorted);
   6. kernel K4 (pass1_scores) against its plain version in its three
      precisions at 98304 x 98304, d = 50 (first 4096 queries, masked rows
      give -inf; each split precision's time over its library call's is
@@ -100,6 +104,41 @@ def cuda_ms(torch, fn, reps):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_kernels(torch, fn, reps):
+    """The kernels and memsets that one call of ``fn`` runs on the card, by
+    torch.profiler over ``reps`` calls after a warm-up: name -> [runs a
+    call, device ms a call]."""
+    act = torch.profiler.ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = evt.name.replace("(anonymous namespace)::", "").split("(")[0]
+        runs, ms = out.get(name, [0.0, 0.0])
+        out[name] = [runs + 1 / reps, ms + evt.time_range.elapsed_us() / reps / 1e3]
+    return out
+
+
+def k3_launches(torch, fn):
+    """{device launches of one K3 call, the names of its kernels and memsets,
+    the path they show}, measured by torch.profiler; fails unless there are
+    1 to 4 launches."""
+    kernels = device_kernels(torch, fn, 5)
+    launches = round(sum(runs for runs, _ in kernels.values()))
+    path = ("sorted" if "rescore_kernel" in kernels
+            else "by_query" if "by_query_kernel" in kernels else "unknown")
+    check(1 <= launches <= 4,
+          f"K3: {launches} device launches a call, path {path} ({sorted(kernels)})")
+    return {"device_launches_per_call": launches, "device_kernels": sorted(kernels),
+            "path": path}
 
 
 def check(cond, what):
@@ -305,6 +344,52 @@ def finite_diff(torch, got, want):
     return torch.where(inf, 0.0, got) - torch.where(inf, 0.0, want)
 
 
+K3_WIDE_C32 = 196_608          # 6.3M data rows: data3 of 1.26 GB, past the 50 MB L2
+
+
+def k3_bound_ms(nq, ks, d, uniq):
+    """(bound ms, what bounds it): the selected sub-chunks and their norms,
+    the ids and the queries read once, the scores written once, against
+    2 nq ks 32 d fp32 flop outside the tensor cores."""
+    nbytes = uniq * 32 * d * 4 + uniq * 32 * 4 + nq * ks * 8 + nq * d * 4 + nq * ks * 32 * 4
+    t_ops = 2.0 * nq * ks * 32 * d / FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k3_bucket_stats(torch, top_sub, c32, p):
+    """Slots per sub-chunk over all c32 sub-chunks (empty ones included), and
+    the segments (runs of one sub-chunk) in each p-slot item of the sorted
+    slots, as the kernel cuts them (p: rescore_cuda.kernel_plan's)."""
+    sizes = torch.bincount(top_sub.flatten(), minlength=c32)
+    f = sizes.double()
+    nz = sizes > 0
+    start = (torch.cumsum(sizes, 0) - sizes)[nz]
+    items = -(-top_sub.numel() // p)
+    seg = torch.zeros(items + 1, dtype=torch.long, device=top_sub.device)
+    ones = torch.ones_like(start)
+    seg.index_add_(0, start // p, ones)
+    seg.index_add_(0, (start + sizes[nz] - 1) // p + 1, -ones)
+    seg = seg.cumsum(0)[:items]
+    return {"sub_chunks": c32, "mean": top_sub.numel() / c32, "unique": int(nz.sum()),
+            "median": float(torch.quantile(f, 0.5)),
+            "p99": float(torch.quantile(f, 0.99)), "max": int(sizes.max()),
+            "items": items, "segments_per_item_max": int(seg.max()),
+            "segments_per_item_mean": float(seg.double().mean())}
+
+
+def k3_wide_inputs(torch, gen, nq, ks=K, d=DIMS, c32=K3_WIDE_C32):
+    """q, data3, dn2 (rows 3..8 of sub-chunk 1 masked) and uniform ids over
+    c32 sub-chunks: each sub-chunk chosen nq * ks / c32 times on average."""
+    q = torch.randn(nq, d, device="cuda", generator=gen)
+    data3 = torch.randn(c32, 32, d, device="cuda", generator=gen)
+    dn2 = (data3 * data3).sum(2)
+    dn2[1, 3:9] = float("inf")
+    top_sub = torch.randint(0, c32, (nq, ks), device="cuda", generator=gen)
+    top_sub[::50, 0] = 1
+    return q, data3, dn2, top_sub
+
+
 def phase_k3(torch, knn_cuda, rescore_cuda, topk_cuda, b1, b2):
     """K3 against its plain version on the main path's data; returns its entry."""
     print("phase 5: rescore_subchunks (K3) against its plain version", flush=True)
@@ -343,10 +428,12 @@ def phase_k3(torch, knn_cuda, rescore_cuda, topk_cuda, b1, b2):
     check(not bool((other_order & ~near.any(1)).any()),
           f"K3: K2's top-{K} order identical on every row without a near-tie "
           f"({int(other_order.sum())} rows differ, {int(near.any(1).sum())} rows hold a near-tie)")
-    uniq = int(torch.unique(top_sub).numel())
-    nbytes = uniq * 32 * d * 4 + uniq * 32 * 4 + nq * ks * 8 + nq * d * 4 + nq * ks * 32 * 4
-    flops = 2.0 * nq * ks * 32 * d
-    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    _, p = rescore_cuda.kernel_plan(nq, ks, data3.shape[0])
+    buckets = k3_bucket_stats(torch, top_sub, data3.shape[0], p)
+    print(f"  K3 buckets: {buckets}", flush=True)
+    plan = k3_launches(torch, lambda: rescore_cuda.rescore_subchunks(query, data3, dn2, top_sub))
+    bound_ms, bound_by = k3_bound_ms(nq, ks, d, buckets["unique"])
+    wide = phase_k3_wide(torch, rescore_cuda)
     return {
         "name": "rescore_subchunks", "route": "cuda",
         "source": "batchelor_torch/csrc/rescore_chunks.cu",
@@ -355,14 +442,48 @@ def phase_k3(torch, knn_cuda, rescore_cuda, topk_cuda, b1, b2):
         "ms": cuda_ms(torch, lambda: rescore_cuda.rescore_subchunks(query, data3, dn2, top_sub), 10),
         "plain_ms": cuda_ms(torch, lambda: rescore_cuda.rescore_subchunks_plain(
             query, data3, dn2, top_sub), 3),
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
         "library_none_because": "no single PyTorch call gathers rows by block id and "
                                 "rescores them; the plain version is the gather + bmm it replaces",
-        "shape": [nq, ks, d], "gather_l2_bytes": nq * ks * 32 * d * 4,
-        "unique_subchunks": uniq, "kth_near_tie_rows": kth_ties,
+        "shape": [nq, ks, d], **plan, "slots_per_item": p, "buckets": buckets,
+        "unique_subchunks": buckets["unique"], "kth_near_tie_rows": kth_ties, "wide": wide,
     }
+
+
+def phase_k3_wide(torch, rescore_cuda):
+    """K3 against its plain version over 196,608 sub-chunks: 4,096 queries
+    (0.4 slots a sub-chunk: one warp a query) and 32,768 (3.3: sorted)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    wide = []
+    for n in (4096, 32768):
+        q, data3, dn2, top_sub = k3_wide_inputs(torch, gen, n)
+        nq, ks = top_sub.shape
+        got = rescore_cuda.rescore_subchunks(q, data3, dn2, top_sub)
+        want = rescore_cuda.rescore_subchunks_plain(q, data3, dn2, top_sub)
+        torch.cuda.synchronize()
+        scale = row_scale(torch, want, 1)
+        diff = finite_diff(torch, got, want).abs()
+        rel = float((diff / scale).max())
+        _, p = rescore_cuda.kernel_plan(nq, ks, K3_WIDE_C32)
+        buckets = k3_bucket_stats(torch, top_sub, K3_WIDE_C32, p)
+        plan = k3_launches(torch, lambda: rescore_cuda.rescore_subchunks(q, data3, dn2, top_sub))
+        check(bool((diff <= K1_TOL * scale).all()),
+              f"K3 wide ({nq} queries, {K3_WIDE_C32} sub-chunks, {plan['path']}): "
+              f"|diff| <= 2^-20 max|s| of the row (worst {rel:.3g} of max|s|)")
+        bound_ms, bound_by = k3_bound_ms(nq, ks, DIMS, buckets["unique"])
+        entry = {"shape": [nq, ks, DIMS, K3_WIDE_C32], "max_abs_err": float(diff.max()),
+                 "max_rel_err": rel,
+                 "ms": cuda_ms(torch, lambda: rescore_cuda.rescore_subchunks(
+                     q, data3, dn2, top_sub), 10),
+                 "plain_ms": cuda_ms(torch, lambda: rescore_cuda.rescore_subchunks_plain(
+                     q, data3, dn2, top_sub), 3),
+                 "bound_ms": bound_ms, "bound_by": bound_by, **plan, "buckets": buckets}
+        print(f"  K3 wide, {nq} queries: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+              f"bound {bound_ms:.4f} ms", flush=True)
+        wide.append(entry)
+        del q, data3, dn2, top_sub, got, want
+    return wide
 
 
 def phase_k4(torch, np, knn_cuda, pass1_cuda):

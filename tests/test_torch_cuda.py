@@ -7,7 +7,7 @@ conftest):
 
 Each kernel is held against its plain version on the same card tensors:
 K2 exactly, K1 and K4 within 2^-20 of the query column's max |score|, K3
-within 2^-20 of the query row's max |score|.
+within 2^-20 of the query row's max |score|, with the same -inf entries.
 """
 import numpy as np
 import pytest
@@ -179,16 +179,9 @@ def test_select_subchunks_card_matches_cpu(c32, card):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("nq,c32,ks,d", [(300, 96, 20, 50), (77, 40, 5, 64), (64, 33, 3, 7),
-                                         (50, 64, 20, 300), (5, 8, 1, 129)])
-def test_rescore_subchunks_kernel_matches_plain(nq, c32, ks, d, card):
-    # d = 300 and 129 stage each sub-chunk in several pieces
-    q = torch.randn(nq, d, device="cuda", generator=card)
-    data3 = torch.randn(c32, 32, d, device="cuda", generator=card)
-    dn2 = (data3 * data3).sum(2)
-    dn2[1, 3:9] = float("inf")                     # masked rows score -inf
-    top_sub = torch.randint(0, c32, (nq, ks), device="cuda", generator=card)
-    top_sub[:, 0] = 1
+def _k3_matches_plain(q, data3, dn2, top_sub):
+    """One kernel call (one launch on the counter) within 2^-20 of the row's
+    max |score| of the plain version, with the same -inf entries."""
     before = rescore_cuda.rescore_subchunks.launches
     got = rescore_cuda.rescore_subchunks(q, data3, dn2, top_sub)
     want = rescore_cuda.rescore_subchunks_plain(q, data3, dn2, top_sub)
@@ -199,6 +192,89 @@ def test_rescore_subchunks_kernel_matches_plain(nq, c32, ks, d, card):
     scale = torch.where(masked, 0.0, want.abs()).amax(1, keepdim=True)
     diff = torch.where(masked, 0.0, got - want).abs()
     assert bool((diff <= 2.0 ** -20 * scale).all())
+    return got
+
+
+def _k3_inputs(nq, c32, ks, d, gen):
+    q = torch.randn(nq, d, device="cuda", generator=gen)
+    data3 = torch.randn(c32, 32, d, device="cuda", generator=gen)
+    dn2 = (data3 * data3).sum(2)
+    dn2[1, 3:9] = float("inf")                     # masked rows score -inf
+    top_sub = torch.randint(0, c32, (nq, ks), device="cuda", generator=gen)
+    top_sub[:, 0] = 1
+    return q, data3, dn2, top_sub
+
+
+@pytest.mark.parametrize("nq,c32,ks,d", [(300, 96, 20, 50), (77, 40, 5, 64), (64, 33, 3, 7),
+                                         (50, 64, 20, 300), (5, 8, 1, 129)])
+def test_rescore_subchunks_kernel_matches_plain(nq, c32, ks, d, card):
+    # d = 300 and 129 stage each sub-chunk in several pieces of features
+    _k3_matches_plain(*_k3_inputs(nq, c32, ks, d, card))
+
+
+@pytest.mark.parametrize("case", ["hub", "hub_only", "wide", "wide_sorted", "repeated", "ks1",
+                                  "nq1"])
+def test_rescore_subchunks_kernel_on_skewed_ids(case, card):
+    # with 2 or more slots a sub-chunk the kernel sorts the slots by
+    # sub-chunk and cuts them into 64-slot items: a bucket larger than 3
+    # items, ids repeated within a row, one rank; 22,000 slots over 10,000
+    # sub-chunks (counted by global atomics past 8,192); with fewer it runs
+    # one warp a query: 300 queries over 196,608 sub-chunks (1.26 GB of
+    # data3, past the L2), one query
+    nq, c32, ks, d = {"hub": (1000, 300, 20, 50), "hub_only": (700, 64, 3, 50),
+                      "wide": (300, 196608, 20, 50), "wide_sorted": (1100, 10000, 20, 50),
+                      "repeated": (200, 50, 10, 33), "ks1": (400, 20, 1, 50),
+                      "nq1": (1, 30, 20, 50)}[case]
+    q, data3, dn2, top_sub = _k3_inputs(nq, c32, ks, d, card)
+    if case == "hub_only":                         # every slot in bucket 1 or 2
+        top_sub[:] = 1
+        top_sub[::3, 2] = 2
+    if case == "repeated":
+        top_sub[:, 1::2] = top_sub[:, 0::2]
+        top_sub[::4, :] = 7
+    _k3_matches_plain(q, data3, dn2, top_sub)
+
+
+def test_rescore_subchunks_kernel_is_deterministic(card):
+    # the atomics order the slots of a bucket differently from call to call;
+    # each output is still one fixed-order chain
+    q, data3, dn2, top_sub = _k3_inputs(2000, 200, 20, 50, card)
+    first = rescore_cuda.rescore_subchunks(q, data3, dn2, top_sub)
+    second = rescore_cuda.rescore_subchunks(q, data3, dn2, top_sub)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.parametrize("c32", [100, 20000])       # sorted, one warp a query
+def test_rescore_subchunks_kernel_reads_nothing_back(c32, card):
+    assert rescore_cuda.kernel_plan(500, 20, c32)[0] == (c32 == 100)
+    q, data3, dn2, top_sub = _k3_inputs(500, c32, 20, 50, card)
+    want = rescore_cuda.rescore_subchunks(q, data3, dn2, top_sub)   # built before
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rescore_cuda.rescore_subchunks(q, data3, dn2, top_sub)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c32", [40, 4000])         # sorted, one warp a query
+def test_rescore_subchunks_kernel_nan_row_for_id_out_of_range(c32, card):
+    q, data3, dn2, top_sub = _k3_inputs(100, c32, 5, 50, card)
+    top_sub[3, 2] = c32
+    top_sub[9, 0] = -1
+    got = rescore_cuda.rescore_subchunks(q, data3, dn2, top_sub)
+    bad = torch.zeros(100, 5, dtype=torch.bool, device="cuda")
+    bad[3, 2] = bad[9, 0] = True
+    bad = bad.repeat_interleave(32, 1)
+    assert bool(torch.isnan(got[bad]).all()) and not bool(torch.isnan(got[~bad]).any())
+    ids = top_sub.clamp(0, c32 - 1)
+    want = rescore_cuda.rescore_subchunks_plain(q, data3, dn2, ids)
+    ok = ~bad & ~torch.isinf(want)
+    scale = torch.where(torch.isinf(want), 0.0, want.abs()).amax(1, keepdim=True)
+    assert bool(((got - want).abs() <= 2.0 ** -20 * scale)[ok].all())
 
 
 def test_rescore_subchunks_kernel_rejects_what_it_cannot_take(card):
@@ -212,6 +288,14 @@ def test_rescore_subchunks_kernel_rejects_what_it_cannot_take(card):
         rescore_cuda.rescore_subchunks(q.T.contiguous().T, data3, dn2, ids)
     with pytest.raises(ValueError):
         rescore_cuda.rescore_subchunks(q, data3, dn2.cpu(), ids)
+    # dn2 a float past a 16-byte boundary; the guard of nq * ks < 2^31 slots
+    # is not tested here: it would need an id tensor of 16 GiB
+    dn2_off = torch.zeros(3 * 32 + 1, device="cuda")[1:].view(3, 32)
+    with pytest.raises(ValueError):
+        rescore_cuda.rescore_subchunks(q, data3, dn2_off, ids)
+    data3_off = torch.zeros(3 * 32 * 8 + 1, device="cuda")[1:].view(3, 32, 8)
+    with pytest.raises(ValueError):
+        rescore_cuda.rescore_subchunks(q, data3_off, dn2, ids)
 
 
 @pytest.mark.parametrize("precision", ["bf16", "high3", "highest"])

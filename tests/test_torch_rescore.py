@@ -22,15 +22,20 @@ from batchelor_tpu.ops.knn import query_knn as j_query_knn
 
 torch.set_num_threads(2)
 
-PROBE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "benchmarks", "knn_dma_rescore_probe.py")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROBE = os.path.join(ROOT, "benchmarks", "knn_dma_rescore_probe.py")
+K3_EMULATE = os.path.join(ROOT, "tools", "k3_emulate.py")
 
 
-def _probe():
-    spec = importlib.util.spec_from_file_location("knn_dma_rescore_probe", PROBE)
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _probe():
+    return _load("knn_dma_rescore_probe", PROBE)
 
 
 def test_gather_plain_equals_probe_dma_gather(rng):
@@ -78,7 +83,32 @@ def test_two_pass_knn_through_rescore_matches_jax(method, rng):
     q = rng.normal(size=(300, 12)).astype(np.float32)
     x = rng.normal(size=(3000, 12)).astype(np.float32)
     jr = j_query_knn(jnp.asarray(q), jnp.asarray(x), 10, method=method)
-    tiles = 10 * 32 * 4 * 64                         # 64 queries per rescore tile
+    tiles = 10 * 32 * 4 * 64                         # under 64 queries per rescore tile
     tr = t_query_knn(q, x, 10, method=method, device="cpu", max_bytes=tiles)
     assert np.array_equal(np.asarray(jr.indices), tr.indices.numpy())
     assert np.allclose(np.asarray(jr.distances), tr.distances.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("nq,ks,c32,d", [(300, 6, 900, 50), (200, 4, 400, 129), (200, 10, 2000, 7)])
+def test_k3_emulation_matches_plain(nq, ks, c32, d, rng):
+    """The kernel's algorithm on skewed ids: a hub bucket (every query's
+    first id) of more than 3 items of 64 slots with masked rows, singleton
+    and empty buckets, repeated ids within a row, counted by several CTAs.
+    Every output row is written exactly once, and within 2^-20 of the row's
+    max |score| of the plain version, with the same -inf entries."""
+    emu = _load("k3_emulate", K3_EMULATE)
+    q, data3, dn2, top_sub = emu.skewed_case(rng, nq, ks, c32, d)
+    stats = emu.bucket_stats(top_sub, c32)
+    assert stats["max"] > 3 * emu.P_DEFAULT and stats["unique"] < c32
+    # counting CTAs of 256 slots split the count as the main path's 245 CTAs do
+    out, writes, segments = emu.rescore(q, data3, dn2, top_sub, rng=rng, count_slots=256)
+    assert (writes == 1).all()
+    want = rescore_cuda.rescore_subchunks_plain(
+        torch.from_numpy(q), torch.from_numpy(data3), torch.from_numpy(dn2),
+        torch.from_numpy(top_sub)).numpy()
+    masked = np.isinf(want)
+    assert masked.any() and np.array_equal(masked, np.isinf(out)) and (out[masked] < 0).all()
+    scale = np.where(masked, 0.0, np.abs(want)).max(axis=1, keepdims=True)
+    diff = np.abs(np.where(masked, 0.0, out) - np.where(masked, 0.0, want))
+    assert (diff <= 2.0 ** -20 * scale).all()
+    assert segments.max() > 1 and segments.size == -(-nq * ks // emu.P_DEFAULT)
