@@ -20,48 +20,13 @@
 // 989 TFLOP/s (3.9 and 7.8 ms with 3 and 6 products), against 0.38 ms for
 // writing the 1.26 GB of maxima at 3.35 TB/s.
 //
-// bf16 mode (the one "auto" takes), on wgmma + TMA:
-//  * Persistent CTAs, one an SM. A CTA owns a tile of 256 data rows (wgmma's
-//    N), loaded once by TMA and kept in shared memory, and walks 64-query
-//    tiles (wgmma's M) against it, so each query byte read from L2 feeds 256
-//    data rows (~5 GB of L2 reads per 100352^2 x 64 call, against ~20 GB
-//    when every 128 x 128 block re-read both operands). Work units are
-//    (data tile, range of query tiles); the ranges split the queries only
-//    where the data tiles alone leave SMs idle.
-//  * Three consumer warpgroups, each with its own tiles and a 128-float
-//    accumulator, and no producer warpgroup. Measured on an H100 (NVIDIA
-//    H100 80GB HBM3, 700 W; tools/k1_bf16_ab.py): one warpgroup's chain of
-//    products alone runs the tensor cores at about half rate, two at ~92% of
-//    peak (1.41 ms without the epilogue), and the epilogue's 128 fp32 max a
-//    thread and tile takes ~0.77 ms of the call when it runs alone. With two
-//    consumers (and a TMA producer warpgroup, setmaxnreg) their products
-//    interleave, finish together, and both epilogues fall in one gap: 2.0
-//    ms, however they take turns. A third accumulator lets two consumers'
-//    products run while the third reduces and stores: 1.81-1.85 ms. A
-//    producer warpgroup beside three consumers would cap a thread at 128
-//    registers (512 threads), too few for the accumulator, so each consumer
-//    loads its own query tiles by TMA, 4 stages ahead, from one elected
-//    thread with predicated instructions.
-//  * Queries on M and data rows on N, both K-major in 128-byte swizzle (a
-//    64-feature row is 128 bytes), so in the accumulator a thread holds 8 of
-//    each sub-chunk's 32 columns for each of its two rows and its quad holds
-//    the rest: the 32-row max is 7 fmaxf in registers and a reduce-scatter
-//    over the quad (xor 2, then xor 1), which leaves each thread two
-//    neighbouring sub-chunks of both rows, stored as float2.
-//  * The maxima are stored query-major, out (nq, nd/32), so a query's 8
-//    maxima of a tile are 32 contiguous bytes and the selection reads rows
-//    without a transpose; the wrapper returns the (nd/32, nq) view.
-//  * Every branch around wgmma is warp-uniform and every barrier wait,
-//    arrive, load and store around it one (predicated) asm statement: ptxas
-//    serializes the wgmma of code it sees as divergent (warning C7520).
-//  * Shapes: nq and nd multiples of 128, dp a multiple of 64. A last data tile of 128
-//    rows reads zeros past nd (TMA's fill), which would score 0 and beat
-//    every real (negative) score, so sub-chunks at or past nd/32 are never
-//    stored; query tiles never cross nq. Up to dp = 256 the data tile stays
-//    resident (4 k-blocks of 32 KB beside three 32 KB rings); wider operands
-//    stream the data tile's k-blocks with each query k-block through one
-//    40 KB stage a consumer. Masked rows' finite 1e30 norm scores about
-//    -1e30.
+// bf16 mode (the one "auto" takes): wgmma_pass1.cuh's persistent wgmma +
+// TMA kernel, which K4's bf16 mode (pass1_norm.cu) shares, with the FoldedNorm
+// epilogue below (2 x the max of the sums). A CTA an SM keeps a 256-row data
+// tile in shared memory, three consumer warpgroups load their own 64-query
+// tiles by TMA, and the maxima are stored query-major, out (nq, nd/32); the
+// wrapper returns the (nd/32, nq) view. Masked rows' finite 1e30 norm scores
+// about -1e30.
 // fp32 modes (what "chunked" and exact_selection take): split_mma.cuh's
 // mma.sync mainloop, which splits the operands into their bf16 parts as it
 // stages them, runs the 3 or 6 products on the tensor cores and walks each
@@ -69,265 +34,21 @@
 // data-major, (nd/32, nq).
 
 #include "split_mma.cuh"
-#include "tma_wgmma.cuh"
+#include "wgmma_pass1.cuh"
 
 namespace {
-
-using namespace tma_wgmma;
 
 enum Mode { kBf16 = 0, kSplit3 = 1, kSplit6 = 2 };
 
 // norms are folded into the features: the score is twice the sum
 struct FoldedNorm {
+  // split_mma.cuh's epilogue
   __device__ float row(int) const { return 0.f; }
   __device__ float score(float s, float) const { return 2.f * s; }
+  // wgmma_pass1.cuh's: no row vector, 2 x the max of the sums
+  static constexpr bool kRowVector = false;
+  __device__ static float finish(float m) { return 2.f * m; }
 };
-
-constexpr int kTileD = 256;                  // data rows per CTA tile: wgmma's N
-constexpr int kTileQ = 64;                   // queries per tile: wgmma's M
-constexpr int kFeat = 64;                    // features per k-block: one 128-byte row
-constexpr int kResidentKB = 4;               // data tiles of up to 256 features stay
-constexpr int kConsumers = 3;
-constexpr int kThreads = 128 * kConsumers;
-constexpr uint32_t kQBlock = kTileQ * kFeat * 2;   // 8 KB
-constexpr uint32_t kXBlock = kTileD * kFeat * 2;   // 32 KB
-constexpr int kEncodeError = 10000;          // + the CUresult of a failed tensor-map encode
-
-template <bool kResident>
-struct Ring {
-  static constexpr int kStages = kResident ? 4 : 1;
-  static constexpr uint32_t kStage = kResident ? kQBlock : kQBlock + kXBlock;
-};
-
-struct Barriers {
-  uint64_t full[kConsumers][4];
-  uint64_t data_full, data_empty;
-};
-
-// work unit u: data tile u % n_dt, 64-query tiles [ta, tb) of group u / n_dt
-__host__ __device__ inline void unit_range(int u, int n_dt, int groups, int tiles, int& d0,
-                                           int& ta, int& tb) {
-  const int g = u / n_dt;
-  d0 = (u % n_dt) * kTileD;
-  ta = static_cast<int>(static_cast<long long>(g) * tiles / groups);
-  tb = static_cast<int>(static_cast<long long>(g + 1) * tiles / groups);
-}
-
-// Consumer c takes tiles ta + c, ta + c + 3, ... of each of its CTA's
-// units. KBlockSeq walks them k-block by k-block, in the order the consumer
-// multiplies them, for the loads that run ahead of the products.
-struct KBlockSeq {
-  int u, q, kb, tb, d0;
-  __device__ void enter(int c, int n_dt, int groups, int tiles, int units) {
-    for (; u < units; u += gridDim.x) {         // the next unit with a tile of c's
-      int ta;
-      unit_range(u, n_dt, groups, tiles, d0, ta, tb);
-      q = ta + c;
-      if (q < tb) return;
-    }
-  }
-  __device__ void start(int c, int n_dt, int groups, int tiles, int units) {
-    u = blockIdx.x;
-    kb = 0;
-    enter(c, n_dt, groups, tiles, units);
-  }
-  __device__ void next(int c, int n_dt, int groups, int tiles, int units, int kblocks) {
-    if (++kb < kblocks) return;
-    kb = 0;
-    q += kConsumers;
-    if (q < tb) return;
-    u += gridDim.x;
-    enter(c, n_dt, groups, tiles, units);
-  }
-};
-
-// 2 x the max over each 32-column sub-chunk of a consumer's 64 x 256 sums,
-// stored at out[row, c0 + sub-chunk] for the thread's rows `row` and row + 8
-__device__ __forceinline__ void store_tile_max(const float (&acc)[128], float* __restrict__ out,
-                                               int nq, int nd32, int row, int c0, int t) {
-  float m[8][2];
-#pragma unroll
-  for (int s = 0; s < 8; ++s)          // 8-column groups 4s .. 4s + 3
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int b = 16 * s + 2 * h;
-      m[s][h] = fmaxf(fmaxf(fmaxf(acc[b], acc[b + 1]), fmaxf(acc[b + 4], acc[b + 5])),
-                      fmaxf(fmaxf(acc[b + 8], acc[b + 9]), fmaxf(acc[b + 12], acc[b + 13])));
-    }
-  // reduce-scatter over the quad: bit 1 of t keeps sub-chunks 4..7 or 0..3,
-  // bit 0 the upper or lower pair of those, so thread t ends with 2t, 2t + 1
-  const bool hi2 = t & 2, hi1 = t & 1;
-  float r[4][2], o[2][2];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float send = hi2 ? m[s][h] : m[s + 4][h], keep = hi2 ? m[s + 4][h] : m[s][h];
-      r[s][h] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, 2));
-    }
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float send = hi1 ? r[s][h] : r[s + 2][h], keep = hi1 ? r[s + 2][h] : r[s][h];
-      o[s][h] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, 1));
-    }
-  const int c = c0 + 2 * t;            // nd32 is a multiple of 4, so c + 1 < nd32 too
-#pragma unroll
-  for (int h = 0; h < 2; ++h)          // never the zero rows past nd
-    st_global_f2_if(out + static_cast<size_t>(row + 8 * h) * nd32 + c, 2.f * o[0][h],
-                    2.f * o[1][h], c < nd32 && row + 8 * h < nq);
-}
-
-template <bool kResident>
-__global__ void __launch_bounds__(kThreads, 1)
-chunk_max_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
-                     const __grid_constant__ CUtensorMap xmap, float* __restrict__ out, int nq,
-                     int nd, int kblocks, int groups) {
-  using R = Ring<kResident>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);   // 1024-aligned
-  const uint32_t xtile = smem_u32(smem);                           // resident data tile
-  const uint32_t ring = xtile + (kResident ? kblocks * kXBlock : 0);   // [consumer][stage]
-  Barriers& bar = *reinterpret_cast<Barriers*>(smem + (ring - xtile) +
-                                               kConsumers * R::kStages * R::kStage);
-
-  // warp-uniform by construction, so ptxas sees no divergence around wgmma
-  const int c = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const bool signal = lane == 0, elected = threadIdx.x % 128 == 0;
-  const int n_dt = (nd + kTileD - 1) / kTileD, tiles = nq / kTileQ;
-  const int units = n_dt * groups, nd32 = nd / 32;
-
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < kConsumers; ++k)
-      for (int s = 0; s < R::kStages; ++s) mbar_init(&bar.full[k][s], 1);
-    mbar_init(&bar.data_full, 1);
-    mbar_init(&bar.data_empty, 4 * kConsumers);      // lane 0 of each consumer warp
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  // Each consumer loads its own query tiles, R::kStages k-blocks ahead: its
-  // elected thread issues the TMA into the stage the last products freed.
-  const uint32_t my_ring = ring + c * R::kStages * R::kStage;
-  KBlockSeq ahead;
-  ahead.start(c, n_dt, groups, tiles, units);
-  int load_stage = 0;
-  auto load_next = [&]() {
-    const bool any = ahead.u < units;
-    const uint32_t st = my_ring + load_stage * R::kStage;
-    mbar_expect_tx_if(&bar.full[c][load_stage], R::kStage, elected && any);
-    tma_load_2d_if(st, &qmap, &bar.full[c][load_stage], ahead.kb * kFeat, ahead.q * kTileQ,
-                   elected && any);
-    if constexpr (!kResident)
-      tma_load_2d_if(st + kQBlock, &xmap, &bar.full[c][load_stage], ahead.kb * kFeat, ahead.d0,
-                     elected && any);
-    if (any) ahead.next(c, n_dt, groups, tiles, units, kblocks);
-    if (++load_stage == R::kStages) load_stage = 0;
-  };
-  for (int s = 0; s < R::kStages; ++s) load_next();
-
-  float acc[128];
-#pragma unroll
-  for (int e = 0; e < 128; ++e) acc[e] = 0.f;
-  int stage = 0, i = 0;
-  uint32_t phase = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
-    int d0, ta, tb;
-    unit_range(u, n_dt, groups, tiles, d0, ta, tb);
-    if constexpr (kResident) {
-      if (c == 0) {                                  // every consumer is done with the last
-        if (i > 0) mbar_wait(&bar.data_empty, (i - 1) & 1);
-        mbar_expect_tx_if(&bar.data_full, kblocks * kXBlock, elected);
-        for (int kb = 0; kb < kblocks; ++kb)
-          tma_load_2d_if(xtile + kb * kXBlock, &xmap, &bar.data_full, kb * kFeat, d0, elected);
-      }
-      mbar_wait(&bar.data_full, i & 1);
-    }
-    for (int q = ta + c; q < tb; q += kConsumers) {
-      fence_regs(acc);
-      wgmma_fence();                                 // the epilogue read acc
-      for (int kb = 0; kb < kblocks; ++kb) {
-        mbar_wait(&bar.full[c][stage], phase);
-        const uint32_t st = my_ring + stage * R::kStage;
-        const uint64_t da = sw128_desc(st);
-        const uint64_t db = sw128_desc(kResident ? xtile + kb * kXBlock : st + kQBlock);
-#pragma unroll
-        for (int kk = 0; kk < kFeat / 16; ++kk)      // 32 bytes per k-step
-          wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, (kb | kk) != 0);
-        if constexpr (!kResident) {                  // one stage: free it for the next k-block
-          wgmma_commit();
-          wgmma_wait<0>();
-          load_next();
-        }
-        if (++stage == R::kStages) { stage = 0; phase ^= 1; }
-      }
-      if constexpr (kResident) {
-        wgmma_commit();
-        wgmma_wait<0>();
-        for (int kb = 0; kb < kblocks; ++kb) load_next();   // the tile's stages are free
-      }
-      fence_regs(acc);
-      store_tile_max(acc, out, nq, nd32, q * kTileQ + warp * 16 + g, d0 / 32, t);
-    }
-    if constexpr (kResident) mbar_arrive_if(&bar.data_empty, signal);
-  }
-}
-
-// query groups per data tile: the fewest that keep the waves of units
-// within 2% of the best filling of the SMs
-int choose_groups(int n_dt, int tiles, int sms) {
-  int best = 1;
-  double best_fill = 0.0;
-  for (int g = 1; g <= tiles && g <= 32; ++g) {
-    const long long units = static_cast<long long>(n_dt) * g;
-    const long long waves = (units + sms - 1) / sms;
-    const double fill = static_cast<double>(units) / static_cast<double>(waves * sms);
-    if (fill > best_fill + 0.02) {
-      best = g;
-      best_fill = fill;
-    }
-  }
-  return best;
-}
-
-template <bool kResident>
-int launch_wgmma(const CUtensorMap& qmap, const CUtensorMap& xmap, float* out, int nq, int nd,
-              int kblocks, int groups, int grid, cudaStream_t stream) {
-  using R = Ring<kResident>;
-  const int bytes = 1024 + (kResident ? kblocks * kXBlock : 0) +
-                    kConsumers * R::kStages * R::kStage + static_cast<int>(sizeof(Barriers));
-  auto kernel = chunk_max_bf16_wgmma<kResident>;
-  // above the 48 KB default; set on every launch, since it holds per device
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, bytes, stream>>>(qmap, xmap, out, nq, nd, kblocks, groups);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_bf16(const void* q, const void* x, float* out, int nq, int nd, int dp,
-                cudaStream_t stream) {
-  if (nq == 0 || nd == 0) return 0;
-  CUtensorMap qmap, xmap;
-  int err = encode_bf16_rows(&qmap, q, nq, dp, kTileQ);
-  if (err == 0) err = encode_bf16_rows(&xmap, x, nd, dp, kTileD);
-  if (err != 0) return kEncodeError + err;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int kblocks = dp / kFeat;
-  const int n_dt = (nd + kTileD - 1) / kTileD, tiles = nq / kTileQ;
-  const int groups = choose_groups(n_dt, tiles, sms);
-  const long long units = static_cast<long long>(n_dt) * groups;
-  const int grid = static_cast<int>(units < sms ? units : sms);
-  if (kblocks <= kResidentKB)
-    return launch_wgmma<true>(qmap, xmap, out, nq, nd, kblocks, groups, grid, stream);
-  return launch_wgmma<false>(qmap, xmap, out, nq, nd, kblocks, groups, grid, stream);
-}
 
 }  // namespace
 
@@ -346,7 +67,7 @@ extern "C" int chunk_max_launch(const void* q, const void* x, float* out,
   const float* xf = static_cast<const float*>(x);
   switch (mode) {
     case kBf16:
-      return launch_bf16(q, x, out, nq, nd, dp, s);
+      return wgmma_pass1::launch(q, x, FoldedNorm{}, out, nq, nd, dp, s);
     case kSplit3:
       return split_mma::launch<2>(qf, xf, FoldedNorm{}, out, nq, nd, dp, s);
     case kSplit6:

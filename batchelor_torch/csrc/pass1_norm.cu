@@ -3,7 +3,8 @@
 // Replaces: benchmarks/knn_pass1_precision_probe.py, make_kernel(precision).kern
 // (called through pass1).
 //
-// Contract: q (nq, dp), x (nd, dp) fp32 and dn (nd,) fp32. The kernel writes
+// Contract, as pass1_scores gives it: q (nq, dp), x (nd, dp) fp32 and dn
+// (nd,) fp32. The kernels give
 //     out[c, j] = max over r in [32c, 32c + 32) of 2 * q[j].x[r] - dn[r],
 // out (nd/32, nq), and the score matrix never reaches device memory. dn is
 // its own input, not folded into feature columns as in chunk_max.cu, so a
@@ -22,135 +23,64 @@
 // TFLOP/s in bf16 (3.75 and 7.5 ms with 3 and 6 products), against 0.36 ms
 // for writing the 1.2 GB output.
 //
-// Design: the tiles of chunk_max.cu (split_mma.cuh). Every CTA computes a
-// block of 128 data rows x 128 queries (64 with highest) on tensor cores
-// (mma.sync m16n8k16) and keeps only its 32-row maxima; the norm is
-// subtracted in the epilogue, before the max.
-//  * bf16: the fp32 operands are rounded to bf16 as they are staged in
-//    shared memory (rows padded to 72 bf16 for conflict-free fragment
-//    loads).
+// Design:
+//  * bf16: the fp32 operands are rounded to bf16 (to nearest even) once per
+//    call, before the kernel, by the wrapper; then wgmma_pass1.cuh's
+//    persistent wgmma + TMA kernel, the one K1's bf16 mode runs, with the
+//    SeparateNorm epilogue: a CTA an SM keeps a 256-row data tile and its
+//    256 dn values in shared memory, three consumer warpgroups load their
+//    own 64-query tiles by TMA, every sum becomes fmaf(2, s, -dn[r]) before
+//    the 32-row max, and the maxima are stored query-major, out (nq, nd/32);
+//    the wrapper returns the (nd/32, nq) view.
 //  * high3 / highest: split_mma.cuh's mainloop, which splits the operands
 //    into their bf16 parts as it stages them, runs the 3 or 6 products on
-//    the tensor cores and walks each data tile over several query tiles,
-//    with the epilogue 2 * sum - dn[r].
-// No TMA, wgmma or warp specialisation yet; they are the next step.
+//    the tensor cores (mma.sync m16n8k16) and walks each data tile over
+//    several query tiles, with the epilogue 2 * sum - dn[r]; out (nd/32, nq).
+
+#include <cstdint>
 
 #include "split_mma.cuh"
+#include "wgmma_pass1.cuh"
 
 namespace {
-
-using namespace split_mma;
 
 enum Mode { kBf16 = 0, kHigh3 = 1, kHighest = 2 };
 
 // the norm is its own vector, subtracted per row
 struct SeparateNorm {
   const float* dn;
+  // split_mma.cuh's epilogue
   __device__ float row(int r) const { return dn[r]; }
   __device__ float score(float s, float n) const { return 2.f * s - n; }
+  // wgmma_pass1.cuh's: the row vector dn, subtracted before the max
+  static constexpr bool kRowVector = true;
+  __device__ static float finish(float m) { return m; }
 };
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-
-// 8 fp32 values at p (32-byte aligned) as 8 bf16 values, rounded to nearest
-__device__ __forceinline__ uint4 load8_bf16(const float* p) {
-  const float4 u = reinterpret_cast<const float4*>(p)[0];
-  const float4 v = reinterpret_cast<const float4*>(p)[1];
-  return make_uint4(pack_bf16(u.x, u.y), pack_bf16(u.z, u.w),
-                    pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-}
-
-__global__ void __launch_bounds__(kThreads)
-pass1_bf16_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                  const float* __restrict__ dn, float* __restrict__ out,
-                  int nq, int nd, int dp) {
-  __shared__ __align__(16) __nv_bfloat16 xs[BD][MLD];
-  __shared__ __align__(16) __nv_bfloat16 qs[BQ][MLD];
-
-  const int nqb = nq / BQ;
-  const int q0 = (blockIdx.x % nqb) * BQ;
-  const int d0 = (blockIdx.x / nqb) * BD;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WARPS_M;            // data rows wm*32 .. wm*32+31
-  const int wn = warp / WARPS_M;            // queries wn*64 .. wn*64+63
-  const int g = lane >> 2, t = lane & 3;    // fragment row group, thread in group
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < dp; k0 += MBK) {
-    for (int e = tid; e < BD * (MBK / 8); e += kThreads) {   // 8 values per step
-      const int r = e / (MBK / 8), c = (e % (MBK / 8)) * 8;
-      *reinterpret_cast<uint4*>(&xs[r][c]) =
-          load8_bf16(x + static_cast<size_t>(d0 + r) * dp + k0 + c);
-      *reinterpret_cast<uint4*>(&qs[r][c]) =
-          load8_bf16(q + static_cast<size_t>(q0 + r) * dp + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < MBK; kk += 16) {
-      unsigned a[2][4], b[8][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        a[mt][0] = ld_pair(&xs[r][kk + 2 * t]);
-        a[mt][1] = ld_pair(&xs[r + 8][kk + 2 * t]);
-        a[mt][2] = ld_pair(&xs[r][kk + 8 + 2 * t]);
-        a[mt][3] = ld_pair(&xs[r + 8][kk + 8 + 2 * t]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int n = wn * 64 + nt * 8 + g;
-        b[nt][0] = ld_pair(&qs[n][kk + 2 * t]);
-        b[nt][1] = ld_pair(&qs[n][kk + 8 + 2 * t]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) mma_16816(acc[mt][nt], a[mt], b[nt]);
-    }
-    __syncthreads();
-  }
-  store_subchunk_max(acc, SeparateNorm{dn}, out, nq, d0, q0, wm, wn, g, t);
-}
-
-int launch_bf16(const float* q, const float* x, const float* dn, float* out, int nq, int nd,
-                int dp, cudaStream_t stream) {
-  const long long blocks = static_cast<long long>(nq / BQ) * (nd / BD);
-  if (blocks == 0) return 0;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  pass1_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(q, x, dn, out, nq,
-                                                                             nd, dp);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
-// Launch on `stream`. mode 0: bf16, 1: high3, 2: highest. Requires
-// nq % 128 == 0, nd % 128 == 0, dp % 64 == 0 and row-major contiguous fp32
-// inputs with 16-byte aligned rows; out is (nd / 32, nq) fp32. Returns
-// cudaGetLastError().
-extern "C" int pass1_norm_launch(const float* q, const float* x, const float* dn,
+// Launch on `stream`. mode 0 (bf16): q and x bf16, out (nq, nd / 32) fp32,
+// query-major; mode 1 (high3) and 2 (highest): q and x fp32, out (nd / 32,
+// nq) fp32. dn is fp32 in every mode, 16-byte aligned in mode 0. Requires
+// nq % 128 == 0, nd % 128 == 0, dp % 64 == 0 and row-major contiguous
+// inputs with 16-byte aligned rows. Returns cudaGetLastError(), or in mode 0
+// 10000 + the CUresult of a failed tensor-map encode.
+extern "C" int pass1_norm_launch(const void* q, const void* x, const float* dn,
                                  float* out, int nq, int nd, int dp, int mode,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nq % BQ || nd % BD || dp % MBK) return static_cast<int>(cudaErrorInvalidValue);
+  if (nq % split_mma::BQ || nd % split_mma::BD || dp % split_mma::MBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* qf = static_cast<const float*>(q);
+  const float* xf = static_cast<const float*>(x);
   switch (mode) {
     case kBf16:
-      return launch_bf16(q, x, dn, out, nq, nd, dp, s);
+      if (reinterpret_cast<uintptr_t>(dn) % 16) return static_cast<int>(cudaErrorInvalidValue);
+      return wgmma_pass1::launch(q, x, SeparateNorm{dn}, out, nq, nd, dp, s);
     case kHigh3:
-      return split_mma::launch<2>(q, x, SeparateNorm{dn}, out, nq, nd, dp, s);
+      return split_mma::launch<2>(qf, xf, SeparateNorm{dn}, out, nq, nd, dp, s);
     case kHighest:
-      return split_mma::launch<3>(q, x, SeparateNorm{dn}, out, nq, nd, dp, s);
+      return split_mma::launch<3>(qf, xf, SeparateNorm{dn}, out, nq, nd, dp, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the wgmma pass-1 kernel in
-// chunk_max.cu: mbarriers, TMA tile loads, wgmma descriptors for K-major
-// operands in 128-byte swizzle, the m64n256k16 bf16 wgmma, and the host's
-// tensor-map encoder.
+// wgmma_pass1.cuh: mbarriers, TMA tile loads and 1-D bulk copies, wgmma
+// descriptors for K-major operands in 128-byte swizzle, the m64n256k16
+// bf16 wgmma, and the host's tensor-map encoder.
 //
 // Layout they assume: an operand tile is R rows of 64 bf16 features (one
 // 128-byte row), loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B into shared
@@ -102,6 +102,22 @@ __device__ __forceinline__ void tma_load_2d_if(uint32_t dst, const CUtensorMap* 
       "}\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// Where `pred` holds: copy `bytes` (a multiple of 16) from global memory at
+// src to shared memory at dst, both 16-byte aligned, the bytes completing
+// the transaction on `bar`. Predicated like the tile load.
+__device__ __forceinline__ void bulk_load_if(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %4, 0;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      "}\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "r"(static_cast<int>(pred))
       : "memory");
 }
 

@@ -12,8 +12,11 @@ maxima of ``2 q.x - dn``, in one of three precisions:
   * "high3": hh + hl + lh, the probe's manual 3-pass arithmetic;
   * "bf16": one product of bf16-rounded operands with fp32 sums
     (Precision.DEFAULT on the TPU).
-On a CUDA tensor the wrapper launches ``csrc/pass1_norm.cu``; on a CPU
-tensor it uses the plain version.
+On a CUDA tensor the wrapper launches ``csrc/pass1_norm.cu`` (bf16: the
+persistent wgmma kernel of ``csrc/wgmma_pass1.cuh``, which K1's bf16 mode
+shares, on operands rounded to bf16 first; high3 / highest: the split
+mainloop of ``csrc/split_mma.cuh``); on a CPU tensor it uses the plain
+version.
 """
 from __future__ import annotations
 
@@ -98,7 +101,11 @@ def pass1_scores(q: torch.Tensor, x: torch.Tensor, dn: torch.Tensor,
     """(N_d/32, N_q) sub-chunk maxima ``out[c, j] = max_{r in c} 2 q_j.x_r - dn_r``.
 
     ``q``/``x``/``dn`` as ``pass1_operands`` makes them. A CPU tensor takes
-    the plain version."""
+    the plain version. On the card "bf16" rounds ``q`` and ``x`` to bf16
+    (to nearest even) before its kernel, which stores the maxima
+    query-major, (N_q, N_d/32): the result is its ``.t()`` view, so
+    ``knn_cuda._select_subchunks`` reads its rows without a copy; "high3"
+    and "highest" return a contiguous (N_d/32, N_q) matrix."""
     _check(q, x, dn, precision)
     if q.device.type == "cpu":
         return pass1_scores_plain(q, x, dn, precision)
@@ -108,16 +115,23 @@ def pass1_scores(q: torch.Tensor, x: torch.Tensor, dn: torch.Tensor,
         raise ValueError("pass1_scores kernel needs contiguous inputs")
     nq, dp = q.shape
     nd = x.shape[0]
-    out = torch.empty((nd // SUB, nq), device=q.device, dtype=torch.float32)
+    bf16 = precision == "bf16"
+    if bf16:
+        if dn.data_ptr() % 16:
+            raise ValueError("pass1_scores bf16 kernel needs dn 16-byte aligned")
+        q, x = q.to(torch.bfloat16), x.to(torch.bfloat16)
+    out = torch.empty((nq, nd // SUB) if bf16 else (nd // SUB, nq), device=q.device,
+                      dtype=torch.float32)
     fn = _launch_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), x.data_ptr(), dn.data_ptr(), out.data_ptr(),
                  nq, nd, dp, PRECISIONS[precision], stream)
     if err != 0:
-        raise RuntimeError(f"pass1_scores kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"pass1_scores kernel launch failed: error {err} (a cudaError_t; "
+                           f"10000 + a CUresult when the bf16 kernel's tensor map fails)")
     pass1_scores.launches += 1
-    return out
+    return out.t() if bf16 else out
 
 
 pass1_scores.launches = 0

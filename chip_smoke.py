@@ -32,12 +32,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      same bound with uniform ids over 196,608 sub-chunks (a 1.26 GB data3,
      past the L2) on 4,096 queries (too few slots a sub-chunk to sort: one
      warp a query) and 32,768 (sorted);
-  6. kernel K4 (pass1_scores) against its plain version in its three
-     precisions at 98304 x 98304, d = 50 (first 4096 queries, masked rows
-     give -inf; each split precision's time over its library call's is
-     printed), then the probe's measurement with the port: pass-1 ms per
-     precision and the selection recall of "high3" and "bf16" against
-     "highest" through the exact rescore, on every 97th query;
+  6. the probe's measurement with the port: pass-1 selection with each
+     precision and the recall of "high3" and "bf16" against "highest"
+     through the exact rescore, on every 97th query; then kernel K4
+     (pass1_scores) against its plain version in its three precisions at
+     98304 x 98304, d = 50 (first 4096 queries, masked rows give -inf, and
+     the bf16 mode's result is the view of its query-major store); each
+     precision's time over its library call's (one torch.addmm a query
+     block, then the 32-row max) is printed, and the bf16 call's device
+     launches (the casts to bf16 and the kernel) are counted;
   7. the slice's path: fast_mnn from gene space on two batches of
      100,000 cells x 2,000 genes, d = 50, k = 20, knn_method="auto", with
      the launch counters showing K1, K2 and K3, finite corrected values, an
@@ -486,6 +489,16 @@ def phase_k3_wide(torch, rescore_cuda):
     return wide
 
 
+def k4_bf16_library(torch, q, x, neg_dn, query_block=8192):
+    """K4 bf16's library yardstick: q and x rounded to bf16, then per query
+    block one torch.addmm of 2 x.q - dn in bf16 and the 32-row max."""
+    xl, ql = x.to(torch.bfloat16), q.to(torch.bfloat16)
+    bias = neg_dn.to(torch.bfloat16)
+    for q0 in range(0, q.shape[0], query_block):
+        s = torch.addmm(bias, xl, ql[q0:q0 + query_block].T, alpha=2.0)
+        s.view(x.shape[0] // 32, 32, -1).amax(1)
+
+
 def phase_k4(torch, np, knn_cuda, pass1_cuda):
     """K4's probe measurement with the port, then K4 against its plain
     version; returns (its entry, the probe measurement)."""
@@ -533,6 +546,7 @@ def phase_k4(torch, np, knn_cuda, pass1_cuda):
     check((nq, nd, dp) == (PROBE_N, PROBE_N, 64), f"K4 operands: {nq} x {nd} x {dp}")
     modes, max_err = {}, 0.0
     lib_fp32 = lib_bf16 = None
+    neg_dn = -dnm[:, None]              # masked rows: -inf
     for prec in ("bf16", "high3", "highest"):
         got = pass1_cuda.pass1_scores(qm[:4096], xm, dnm, prec)
         want = pass1_cuda.pass1_scores_plain(qm[:4096], xm, dnm, prec)
@@ -540,6 +554,8 @@ def phase_k4(torch, np, knn_cuda, pass1_cuda):
         scale = row_scale(torch, want, 0)
         diff = finite_diff(torch, got, want).abs()
         check(bool(torch.isinf(want[32:34]).all()), f"K4 {prec}: masked sub-chunks are -inf")
+        if prec == "bf16":              # stored query-major, returned as its (N_d/32, N_q) view
+            check(got.t().is_contiguous(), "K4 bf16: the result is the view of a query-major matrix")
         rel = float((diff / scale).max())
         check(bool((diff <= K1_TOL * scale).all()),
               f"K4 {prec}: |diff| <= 2^-20 max|s| (worst {rel:.3g} of max|s|)")
@@ -549,27 +565,35 @@ def phase_k4(torch, np, knn_cuda, pass1_cuda):
         t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
 
         def library(low):
-            xl = xm.to(torch.bfloat16) if low else xm
-            ql = qm.to(torch.bfloat16) if low else qm
+            # one addmm a query block (2 x.q - dn) in the operands' dtype, then
+            # the 32-row max
+            if low:
+                k4_bf16_library(torch, qm, xm, neg_dn)
+                return
             with full_fp32_matmul():
                 for q0 in range(0, nq, 8192):
-                    s = 2.0 * (xl @ ql[q0:q0 + 8192].T).float() - dnm[:, None]
+                    s = torch.addmm(neg_dn, xm, qm[q0:q0 + 8192].T, alpha=2.0)
                     s.view(nd // 32, 32, -1).amax(1)
         if prec == "bf16":
             lib_bf16 = cuda_ms(torch, lambda: library(True), 3)
         elif lib_fp32 is None:
             lib_fp32 = cuda_ms(torch, lambda: library(False), 3)
         modes[prec] = {
-            "ms": cuda_ms(torch, lambda: pass1_cuda.pass1_scores(qm, xm, dnm, prec), 3),
+            "ms": cuda_ms(torch, lambda: pass1_cuda.pass1_scores(qm, xm, dnm, prec),
+                          5 if prec == "bf16" else 3),
             "plain_ms": cuda_ms(torch, lambda: pass1_cuda.pass1_scores_plain(qm, xm, dnm, prec), 3),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_bf16 if prec == "bf16" else lib_fp32,
+            "library_call": f"torch.addmm {'bf16' if prec == 'bf16' else 'fp32'}, amax",
             "max_abs_err": float(diff.max()), "max_rel_err": rel,
         }
         ms, lib_ms = modes[prec]["ms"], modes[prec]["library_ms"]
-        if prec != "bf16":
-            modes[prec]["ms_over_library"] = ms / lib_ms
+        modes[prec]["ms_over_library"] = ms / lib_ms
+        if prec == "bf16":              # the casts to bf16 and the kernel, by torch.profiler
+            kernels = device_kernels(torch, lambda: pass1_cuda.pass1_scores(qm, xm, dnm, prec), 3)
+            modes[prec]["device_launches_per_call"] = round(sum(r for r, _ in kernels.values()))
+            modes[prec]["device_kernels"] = sorted(kernels)
         max_err = max(max_err, modes[prec]["max_abs_err"])
         print(f"  pass 1 {prec}: {ms:.3f} ms, library {lib_ms:.3f} ms, ratio {ms / lib_ms:.3f}",
               flush=True)

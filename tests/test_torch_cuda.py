@@ -320,6 +320,53 @@ def test_pass1_scores_kernel_matches_plain(precision, d0, card):
     assert bool((diff <= 2.0 ** -20 * scale).all())
 
 
+@pytest.mark.parametrize("nd,nq", [(1152, 640), (384, 128), (3072, 1024)])
+@pytest.mark.parametrize("dp,d0", [(64, 50), (128, 100), (256, 250), (384, 300)])
+def test_pass1_bf16_kernel_on_ragged_tiles(dp, d0, nd, nq, card):
+    # K4's bf16 mode runs K1's persistent wgmma kernel with dn in shared
+    # memory beside the 256-row data tile: nd = 1152 and 384 leave a last
+    # tile of 128 rows (zeros past nd, dn copied only up to nd); nq = 640
+    # is 10 query tiles of 64, which the three consumers do not share
+    # evenly; dp = 384 streams the data tile's k-blocks, and dn once a unit
+    query = torch.randn(nq, d0, device="cuda", generator=card)
+    data = torch.randn(nd, d0, device="cuda", generator=card) + 0.5
+    data[40] = data[33]                      # a tie inside sub-chunk 1
+    valid = torch.ones(nd, dtype=torch.bool, device="cuda")
+    valid[64:96] = False                     # sub-chunk 2: masked rows only
+    valid[nd - 5] = False
+    q, x, dn = pass1_cuda.pass1_operands(query, data, valid)
+    assert q.shape[1] == dp
+    q, x, dn = q[:nq], x[:nd], dn[:nd]
+    before = pass1_cuda.pass1_scores.launches
+    got = pass1_cuda.pass1_scores(q, x, dn, "bf16")
+    want = pass1_cuda.pass1_scores_plain(q, x, dn, "bf16")
+    torch.cuda.synchronize()
+    assert pass1_cuda.pass1_scores.launches == before + 1
+    assert got.shape == (nd // 32, nq) and got.t().is_contiguous()
+    assert got.t().contiguous().data_ptr() == got.data_ptr()   # the selection copies nothing
+    assert bool(torch.isneginf(got[2]).all()) and bool(torch.isfinite(got[3:]).all())
+    _within_column_bound(got, want)
+
+
+def test_pass1_bf16_kernel_is_deterministic(card):
+    query = torch.randn(1000, 50, device="cuda", generator=card)
+    data = torch.randn(5000, 50, device="cuda", generator=card) + 0.5
+    valid = torch.ones(5000, dtype=torch.bool, device="cuda")
+    q, x, dn = pass1_cuda.pass1_operands(query, data, valid)
+    first = pass1_cuda.pass1_scores(q, x, dn, "bf16")
+    second = pass1_cuda.pass1_scores(q, x, dn, "bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def test_pass1_bf16_kernel_rejects_a_misaligned_norm(card):
+    q = torch.randn(128, 64, device="cuda", generator=card)
+    x = torch.randn(128, 64, device="cuda", generator=card)
+    dn_off = torch.zeros(129, device="cuda")[1:]
+    with pytest.raises(ValueError):
+        pass1_cuda.pass1_scores(q, x, dn_off, "bf16")
+
+
 def _within_column_bound(got, want):
     """|got - want| <= 2^-20 of each query column's max |score|; -inf (K4's
     masked rows) and K1's 1e30 sentinel entries must match themselves."""

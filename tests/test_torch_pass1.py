@@ -11,6 +11,9 @@ masked sub-chunk must give -inf in both:
   * "bf16" against Precision.DEFAULT on operands rounded to bf16 first: on
     the CPU, DEFAULT is fp32, and a product of two bf16 values is exact in
     fp32, which reproduces the TPU's one bf16 pass.
+The card's bf16 kernel returns the (N_d/32, N_q) view of a query-major
+store; the probe path's selection must read that view as it reads the plain
+version's contiguous result.
 """
 import importlib.util
 import os
@@ -22,7 +25,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from batchelor_torch.ops import pass1_cuda
+from batchelor_torch.ops import knn_cuda, pass1_cuda
 
 torch.set_num_threads(2)
 
@@ -97,3 +100,23 @@ def test_pass1_operands_follow_the_probe(rng):
         pass1_cuda.pass1_scores(q, x, dn, "medium")
     with pytest.raises(ValueError):
         pass1_cuda.pass1_scores(q[:100], x, dn)
+
+
+@pytest.mark.parametrize("k", [1, 20])
+def test_select_subchunks_reads_a_query_major_result_alike(k, rng):
+    # On the card the bf16 kernel stores its maxima query-major and returns
+    # the (N_d/32, N_q) view; the probe path's selection must give the same
+    # sub-chunks from that view as from the plain version's contiguous result
+    query = rng.normal(size=(300, 50)).astype(np.float32)
+    data = (rng.normal(size=(3000, 50)) + 0.3).astype(np.float32)
+    valid = np.ones(3000, bool)
+    valid[100:200] = False
+    q, x, dn = pass1_cuda.pass1_operands(torch.from_numpy(query), torch.from_numpy(data),
+                                         torch.from_numpy(valid))
+    plain = pass1_cuda.pass1_scores(q, x, dn, "bf16")
+    view = plain.t().contiguous().t()               # the card's layout, the same values
+    assert plain.is_contiguous() and view.t().is_contiguous()
+    assert torch.equal(view, plain)
+    want = knn_cuda._select_subchunks(plain, k)
+    got = knn_cuda._select_subchunks(view, k)
+    assert got.shape == (q.shape[0], k) and torch.equal(got, want)

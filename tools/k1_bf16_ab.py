@@ -13,9 +13,9 @@ median over the rounds of the median of --reps CUDA-event timings. The
 current kernel stores its maxima query-major, (N_q, N_d/32); a baseline
 from before it stores them data-major, (N_d/32, N_q) (--baseline-layout
 query for one that does not). Reports the largest difference between the
-versions relative to each query column's max |score|, the library call
-(torch.matmul in bf16, then the 32-row max, as chip_smoke.py times it) in
-the same rounds, the bound,
+versions relative to each query column's max |score| and whether they are
+bit for bit identical, the library call (torch.matmul in bf16, then the
+32-row max, as chip_smoke.py times it) in the same rounds, the bound,
 and the L2 bytes the current kernel's TMA loads read, counted from the
 shapes (each 256-row data tile reads every query row once). Prints one JSON
 line, then the card's name and power limit.
@@ -115,6 +115,8 @@ def main():
         ref = views["current"]
         scale = ref.abs().amax(0, keepdim=True)
         diffs = {v: float(((views[v] - ref).abs() / scale).max()) for v in versions}
+        identical = {v: bool(torch.equal(views[v].view(torch.int32), ref.view(torch.int32)))
+                     for v in versions}
         del outs, views, ref
     flops = 2.0 * nq * nd * dp
     io_bytes = (nq + nd) * dp * 2 + (nd // 32) * nq * 4
@@ -124,6 +126,7 @@ def main():
         "ms": {n: float(np.median(times[n])) for n in names},
         "rounds_ms": times,
         "max_rel_diff_vs_current": diffs,
+        "bit_identical_to_current": identical,
         "bound_ms": max(flops / BF16_FLOP_PER_S, io_bytes / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if flops / BF16_FLOP_PER_S >= io_bytes / HBM_BYTES_PER_S
         else "bytes",
