@@ -8,12 +8,19 @@ PyTorch. Entry points run on the CUDA device unless called with
 
 Ported so far: ``fast_mnn`` from gene space (cosine normalization,
 ``multi_batch_pca``, the merge), the reduced-coordinate merge
-(``reduced_mnn``) and what they run: kNN search, MNN detection and the
+(``reduced_mnn``) with per-step checkpoints (``MergeCheckpointer``, the PCA
+stage's ``save_pca_stage``/``load_pca_stage``), the fused merge step that
+never waits for the host (``fused_merge_step``), classic mnnCorrect
+(``mnn_correct``: Gaussian smoothing, bio-span removal, variance
+adjustment), and what they run: kNN search, MNN detection and the
 correction math.
 """
 from .convert import from_numpy, pca_to_numpy, result_to_numpy
+from .correct.classic_mnn import mnn_correct
 from .correct.fast_mnn import MergeStepInfo, MNNResult, fast_mnn, reduced_mnn
+from .correct.fused import FusedMergeOutput, fused_merge_step
 from .device import resolve_device
+from .io.checkpoint import MergeCheckpointer, load_pca_stage, save_pca_stage
 from .ops.cosine_norm import cosine_norm
 from .ops.knn import KNNResult, query_knn
 from .ops.lowrank import LowRankOp
@@ -22,8 +29,10 @@ from .ops.pca import MultiBatchPCAResult, multi_batch_pca
 from .utils.telemetry import MetricsRecorder, get_recorder, set_recorder, trace_span
 
 __all__ = [
+    "FusedMergeOutput",
     "KNNResult",
     "LowRankOp",
+    "MergeCheckpointer",
     "MNNPairs",
     "MNNResult",
     "MergeStepInfo",
@@ -33,7 +42,10 @@ __all__ = [
     "fast_mnn",
     "find_mutual_nn",
     "from_numpy",
+    "fused_merge_step",
     "get_recorder",
+    "load_pca_stage",
+    "mnn_correct",
     "multi_batch_pca",
     "pca_to_numpy",
     "query_knn",
@@ -41,6 +53,7 @@ __all__ = [
     "resolve_device",
     "restricted_mnn",
     "result_to_numpy",
+    "save_pca_stage",
     "set_recorder",
     "trace_span",
 ]

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, as_tensor, resolve_device
+from ..io.checkpoint import MergeCheckpointer
 from ..ops.correction import (
     average_correction,
     batch_magnitude,
@@ -144,8 +145,10 @@ def _fast_mnn_core(
     auto_merge: bool = False,
     min_batch_skip: Optional[float] = 0.0,
     batch_names: Optional[Sequence[str]] = None,
+    checkpoint_dir: Optional[str] = None,
     knn_method: str = "exact",
 ):
+    checkpointer = None if checkpoint_dir is None else MergeCheckpointer(checkpoint_dir)
     nbatches = len(batches)
     nmerges = nbatches - 1
     left_sets: List[list] = [None] * nmerges
@@ -172,6 +175,39 @@ def _fast_mnn_core(
     final_node: Optional[MergeNode] = None
 
     for mdx in range(nmerges):
+        # Resume path: replay a completed step from the checkpoint store
+        # without recomputation.
+        if checkpointer is not None and mdx < checkpointer.completed_steps:
+            tree_path, chosen, merged, diag = checkpointer.load_step(
+                mdx, batches[0].device)
+            left_sets[mdx] = diag["left_set"]
+            right_sets[mdx] = diag["right_set"]
+            raw_pairs[mdx] = diag["pairs"]
+            batch_size[mdx] = diag["batch_size"]
+            skipped[mdx] = diag["skipped"]
+            var_kept[mdx] = 1.0 - diag["lost_var"]
+            if not auto_merge:
+                # the walk must address the same subtree and the same batch
+                # sets as when the checkpoint was written
+                cur_left, cur_right, expect_path = get_next_merge(tree)
+                if (
+                    expect_path != tree_path
+                    or list(cur_left.index) != list(diag["left_set"])
+                    or list(cur_right.index) != list(diag["right_set"])
+                ):
+                    raise ValueError("checkpoint does not match this merge tree")
+                tree = update_tree(tree, tree_path, merged)
+                if not isinstance(tree, list):
+                    final_node = tree
+            else:
+                li, ri = chosen
+                keep = [x for t, x in enumerate(remainders) if t not in (li, ri)]
+                remainders = keep + [merged]
+                stats = diag["stats"]
+                if len(remainders) == 1:
+                    final_node = merged
+            continue
+
         if not auto_merge:
             left, right, path = get_next_merge(tree)
         else:
@@ -277,6 +313,23 @@ def _fast_mnn_core(
             if len(remainders) == 1:
                 final_node = merged
 
+        if checkpointer is not None:
+            checkpointer.save_step(
+                mdx,
+                path if not auto_merge else None,
+                None if not auto_merge else [li, ri],
+                merged,
+                {
+                    "pairs": raw_pairs[mdx],
+                    "lost_var": 1.0 - var_kept[mdx],
+                    "left_set": left_sets[mdx],
+                    "right_set": right_sets[mdx],
+                    "batch_size": float(batch_size[mdx]),
+                    "skipped": bool(skipped[mdx]),
+                    "stats": stats if auto_merge else None,
+                },
+            )
+
     assert final_node is not None
     full_data = final_node.data
     full_order = final_node.index
@@ -359,15 +412,14 @@ def reduced_mnn(
     the CUDA device; raises without one unless ``device="cpu"``).
     ``cell_names``: per-batch name vectors (list input) or one input-order
     vector (single input), carried to the output like the reference's
-    .rename_output (R/utils_multibatch.R:3-33). ``checkpoint_dir`` is not
-    supported yet.
+    .rename_output (R/utils_multibatch.R:3-33). ``checkpoint_dir``: save
+    each merge step there and resume from the steps it already holds
+    (``io/checkpoint.py``; the JAX package's format).
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir needs io/checkpoint.py, not ported yet")
     dev = resolve_device(device)
     opts = dict(k=k, prop_k=prop_k, ndist=ndist, merge_order=merge_order,
                 auto_merge=auto_merge, min_batch_skip=min_batch_skip,
-                knn_method=knn_method)
+                checkpoint_dir=checkpoint_dir, knn_method=knn_method)
     if isinstance(batches_or_single, (list, tuple)):
         batches = [as_tensor(b, dev) for b in batches_or_single]
         check_batch_consistency(batches, cells_in_rows=True)
@@ -438,10 +490,9 @@ def fast_mnn(
     ``cell_names``/``gene_names`` are carried onto the result like the
     reference's .rename_output (R/utils_multibatch.R:3-33); gene names
     follow the rotation rows (subset by ``subset_row`` unless
-    ``correct_all``). ``checkpoint_dir`` is not supported yet.
+    ``correct_all``). ``checkpoint_dir``: save each merge step there and
+    resume from the steps it already holds, as ``reduced_mnn`` does.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir needs io/checkpoint.py, not ported yet")
     dev = resolve_device(device)
     single = not isinstance(batches_or_single, (list, tuple))
     if single:
@@ -492,6 +543,7 @@ def fast_mnn(
         auto_merge=auto_merge,
         min_batch_skip=min_batch_skip,
         batch_names=batch_names,
+        checkpoint_dir=checkpoint_dir,
         knn_method=knn_method,
     )
     if single:

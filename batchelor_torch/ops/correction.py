@@ -20,6 +20,7 @@ __all__ = [
     "batch_magnitude",
     "center_along_batch_vector",
     "orthogonalize_other",
+    "pair_segment_sums",
     "per_batch_var",
     "tricube_average",
     "tricube_weights",
@@ -43,6 +44,37 @@ def tricube_weights(dist: torch.Tensor, ndist: float = 3.0) -> torch.Tensor:
     tri = torch.where(finite, (1.0 - rel ** 3) ** 3, torch.zeros((), dtype=dist.dtype, device=dist.device))
     denom = tri.sum(1, keepdim=True)
     return tri / torch.clamp(denom, min=torch.finfo(tri.dtype).tiny)
+
+
+def pair_segment_sums(l_rows: torch.Tensor, l2r: torch.Tensor, mutual: torch.Tensor,
+                      n_segments: int, *, lo: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of paired left rows, pair count) per right-cell segment.
+
+    For each mutual pair (i, j = l2r[i, p]) adds l_rows[i] to segment j and
+    1 to its count, one neighbour position p at a time, so no (N1, k2, d)
+    tensor exists. Each position's sums go into fresh zeros that are then
+    added to the running sums, in the JAX function's order. ``lo``: only
+    l2r values in [lo, lo + n_segments) contribute, shifted by -lo (the
+    windowed form of a ring reduce-scatter); the rest go to a trash row
+    ``n_segments``. A candidate in the window that is not a pair adds
+    zeros to its own segment, which leaves every sum as it was, rather than
+    to the trash row, whose atomic adds on the card would all contend for
+    one row. Returns (lsums (n_segments, d), counts (n_segments,)), without
+    reading anything back to the host."""
+    dt = l_rows.dtype
+    dev = l_rows.device
+    shape = (n_segments + 1, l_rows.shape[1])
+    lsums = torch.zeros(shape, device=dev, dtype=dt)
+    counts = torch.zeros(n_segments + 1, device=dev, dtype=dt)
+    for p in range(l2r.shape[1]):
+        col = l2r[:, p]
+        window = (col >= lo) & (col < lo + n_segments)
+        seg = torch.where(window, col - lo, n_segments).long()
+        w = (mutual[:, p] & window).to(dt)
+        lsums = lsums + torch.zeros(shape, device=dev, dtype=dt).index_add_(
+            0, seg, l_rows * w[:, None])
+        counts = counts + torch.zeros(n_segments + 1, device=dev, dtype=dt).index_add_(0, seg, w)
+    return lsums[:n_segments], counts[:n_segments]
 
 
 def average_correction(

@@ -181,7 +181,7 @@ def _pass1_operands(query: torch.Tensor, data: torch.Tensor, data_valid: torch.T
     x[:nd, :d0] = data
     valid = torch.zeros(x.shape[0], device=dev, dtype=torch.bool)
     valid[:nd] = data_valid
-    dn = torch.where(valid, (x * x).sum(1), torch.tensor(1e30, device=dev))
+    dn = (x * x).sum(1).masked_fill_(~valid, 1e30)
     dn_hi = dn.to(torch.bfloat16).float()
     x[:, dpad - 2] = dn_hi
     x[:, dpad - 1] = dn - dn_hi
@@ -231,7 +231,7 @@ def _chunked_view(data: torch.Tensor, data_valid: torch.Tensor):
     x[:nd] = data
     valid = torch.zeros(x.shape[0], device=data.device, dtype=torch.bool)
     valid[:nd] = data_valid
-    dn = torch.where(valid, (x * x).sum(1), torch.tensor(float("inf"), device=data.device))
+    dn = (x * x).sum(1).masked_fill_(~valid, float("inf"))
     return x.view(-1, SUB, d0), dn.view(-1, SUB)
 
 

@@ -52,8 +52,30 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      2,000 cells x 500 genes, merge tree, restrict, prop_k, randomized
      PCA): in fp64 identical pairs in every step and corrected within 1e-4
      up to the sign of each PCA column; in fp32, where the two devices'
-     rounding moves the PCA's weakest directions, the agreement is printed.
-It prints the build time, one {"kernels": [...]} line with each kernel's
+     rounding moves the PCA's weakest directions, the agreement is printed;
+  9. fused_merge_step on the main path's data with "auto" and "exact",
+     against reduced_mnn with the same method: identical pair sets and
+     n_pairs, batch_size within 1e-5 relative, and under "exact" corrected
+     values within 1e-4 x max|corrected| on >= 99.9% of rows (the rows
+     beyond are printed: a tricube neighbour tie can fall either way; under
+     "auto" they are printed only); the launch counters show K1, K2 and K3
+     in the "auto" step; a further "auto" call runs under
+     torch.cuda.set_sync_debug_mode("error"), which raises at any sync with
+     the host; then the step and reduced_mnn under torch.profiler (wall and
+     device ms, idle share, device launches);
+ 10. mnn_correct (classic mnnCorrect, bench.py config 2's options: sigma =
+     0.1, var_adj, cosine normalization) on 2 x 10,000 cells x 2,000 genes
+     (log1p of the simulation's magnitudes), first and second call, K2 on
+     the launch counter; then the card against the CPU at 2 x 1,000 x 500
+     with svd_dim = 2, and with subset_row + correct_all + out_on_host
+     (whose result stays on the host): in fp64 identical pairs and within
+     1e-4 x max|corrected|; in fp32 the same where the pairs are identical,
+     else the agreement is printed (a near-tied pair can come and go);
+ 11. checkpoints: reduced_mnn on 3 x 20,000 x 50 ("auto") with
+     checkpoint_dir under build/, its last step's files deleted, then run
+     again: the resumed result within 1e-6 x max|corrected| of the
+     uninterrupted one, with identical pairs.
+It prints each phase's seconds, the build time, one {"kernels": [...]} line with each kernel's
 launches on its path, times (median of CUDA-event timings), bound and
 library yardstick, one line each with the reduced_mnn and fast_mnn paths'
 seconds, the card's name and power limit, and last {"ok": true, "device":
@@ -70,7 +92,9 @@ N_CELLS = 100_000
 DIMS = 50
 K = 20
 SEED = 42
-GENES = 2_000                  # fast_mnn's gene-space width (phase 7)
+GENES = 2_000                  # fast_mnn's and mnn_correct's gene-space width (7, 10)
+CLASSIC_N = 10_000             # mnn_correct's cells a batch (phase 10)
+CKPT_N = 20_000                # checkpointed reduced_mnn's cells a batch (phase 11)
 PROBE_N = 98_304               # knn_pass1_precision_probe.py's N
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
@@ -718,6 +742,223 @@ def phase_config3_card_vs_cpu(torch, np, bt):
     return out
 
 
+def profiled(torch, fn):
+    """One call of ``fn`` under torch.profiler after a warm-up call: (wall
+    ms, device ms summed over its kernels, memsets and copies, the device's
+    idle share 1 - device / wall, device launches)."""
+    act = torch.profiler.ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for evt in prof.events():
+        # the port's trace spans ("fastmnn/...") also stand on the device
+        # timeline, over the kernels they enclose: counting them would count
+        # those kernels twice
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.name.startswith("fastmnn/")):
+            continue
+        name = evt.name.replace("(anonymous namespace)::", "").split("(")[0][:60]
+        runs, ms = by_name.get(name, (0, 0.0))
+        by_name[name] = (runs + 1, ms + evt.time_range.elapsed_us() / 1e3)
+    device_ms = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1.0 - device_ms / wall_ms,
+            "device_launches": sum(runs for runs, _ in by_name.values()),
+            "top_kernels": [{"name": k, "launches": r, "ms": m} for k, (r, m) in top]}
+
+
+def fused_pair_set(np, out, n1, n):
+    """The fused step's pairs as reduced_mnn's output positions, i * n + j."""
+    mask = out.pair_mask.cpu().numpy()
+    targets = out.pair_targets.cpu().numpy()
+    rows, cols = np.nonzero(mask)
+    return rows.astype("int64") * n + targets[rows, cols].astype("int64") + n1
+
+
+def phase_fused(torch, np, bt, path_kernels, b1, b2):
+    """fused_merge_step at 2 x 100k against reduced_mnn; returns its line."""
+    print("phase 9: fused_merge_step, 2 x 100,000 x 50, k=20, against reduced_mnn "
+          "('auto' and 'exact'), then sync-free", flush=True)
+    left = torch.from_numpy(b1).cuda()
+    right = torch.from_numpy(b2).cuda()
+    n = 2 * N_CELLS
+    torch.cuda.synchronize()
+    out = {}
+    for method in ("auto", "exact"):
+        zero_counts(path_kernels)
+        t0 = time.perf_counter()
+        fused = bt.fused_merge_step(left, right, K, K, K, knn_method=method)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts(path_kernels)
+        if method == "auto":
+            check(all(v > 0 for v in launches.values()), f"'auto': K1, K2 and K3 ran: {launches}")
+        ref = bt.reduced_mnn([left, right], k=K, knn_method=method)
+        ours, theirs = fused_pair_set(np, fused, N_CELLS, n), pair_set(ref.merge_info[0], n)
+        check(np.array_equal(np.sort(ours), np.sort(theirs)),
+              f"'{method}': pair sets identical to reduced_mnn's ({theirs.size})")
+        check(int(fused.n_pairs) == theirs.size, f"'{method}': n_pairs {int(fused.n_pairs)}")
+        size, ref_size = float(fused.batch_size), ref.merge_info[0].batch_size
+        rel = abs(size - ref_size) / ref_size
+        check(rel <= 1e-5, f"'{method}': batch_size {size:.7g} vs {ref_size:.7g} "
+                           f"(relative {rel:.3g} <= 1e-5)")
+        corrected = torch.cat([fused.left, fused.right])
+        check(bool(torch.isfinite(corrected).all()), f"'{method}': corrected is finite")
+        scale = float(ref.corrected.abs().max())
+        row_diff = (corrected - ref.corrected).abs().amax(1)
+        off = int((row_diff > 1e-4 * scale).sum())
+        worst = float(row_diff.max()) / scale
+        # the host engine searches the compact involved set for the tricube
+        # neighbours, the fused step the masked full set: a tie between two
+        # candidates can fall either way
+        print(f"  '{method}': {off} of {n} rows beyond 1e-4 x max|corrected| "
+              f"(worst {worst:.3g} of it); first run {seconds:.3f} s", flush=True)
+        if method == "exact":
+            check(off <= n // 1000, f"'exact': corrected within 1e-4 x max|corrected| on "
+                                    f">= 99.9% of rows ({off} rows beyond)")
+        out[method] = {"seconds_first_run": seconds, "launches": launches,
+                       "pairs": int(theirs.size), "batch_size": size,
+                       "batch_size_rel_diff": rel, "rows_beyond_1e-4": off,
+                       "worst_row_diff_rel": worst}
+    # the warm-up was the 'auto' call above; this one may not sync at all
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = bt.fused_merge_step(left, right, K, K, K, knn_method="auto")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(again.right).all()),
+          "'auto' second call completed under set_sync_debug_mode('error')")
+    prof = {
+        "fused_merge_step": profiled(torch, lambda: bt.fused_merge_step(
+            left, right, K, K, K, knn_method="auto")),
+        "reduced_mnn": profiled(torch, lambda: bt.reduced_mnn(
+            [left, right], k=K, knn_method="auto")),
+    }
+    for name, p in prof.items():
+        print(f"  {name} 'auto' profiled: wall {p['wall_ms']:.2f} ms, device "
+              f"{p['device_ms']:.2f} ms, idle share {p['idle_share']:.3f}, "
+              f"{p['device_launches']} device launches", flush=True)
+        for t in p["top_kernels"]:
+            print(f"    {t['ms']:8.3f} ms {t['launches']:5d} x {t['name']}", flush=True)
+    return {"path": f"fused_merge_step 2x{N_CELLS}x{DIMS} k={K}", **out, "profiled": prof}
+
+
+def classic_inputs(np, n, genes):
+    rng = np.random.default_rng(SEED)
+    return [np.log1p(np.abs(simulate(rng, n, genes))),
+            np.log1p(np.abs(simulate(rng, n, genes, shift=0.8)))]
+
+
+def phase_classic(torch, np, bt, path_kernels):
+    """mnn_correct at 2 x 10,000 x 2,000, then card against CPU; returns its line."""
+    print(f"phase 10: mnn_correct, 2 x {CLASSIC_N:,} x {GENES:,} genes, sigma=0.1, "
+          "var_adj, then card against CPU at 2 x 1,000 x 500", flush=True)
+    mats = [torch.from_numpy(m).cuda() for m in classic_inputs(np, CLASSIC_N, GENES)]
+    torch.cuda.synchronize()
+    seconds = []
+    for run in ("first", "second"):
+        if run == "first":
+            zero_counts(path_kernels)
+        t0 = time.perf_counter()
+        res = bt.mnn_correct(mats, sigma=0.1, var_adj=True)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if run == "first":
+            launches = read_counts(path_kernels)
+            check(launches["topk_rows"] > 0, f"K2 ran in the MNN searches: {launches}")
+        print(f"  {run} run: {seconds[-1]:.3f} s", flush=True)
+    check(tuple(res.corrected.shape) == (2 * CLASSIC_N, GENES)
+          and bool(torch.isfinite(res.corrected).all()),
+          f"corrected is finite, ({2 * CLASSIC_N}, {GENES}); "
+          f"{res.merge_info[0].pairs.shape[0]} pairs")
+    small = classic_inputs(np, 1000, 500)
+    agree = {}
+    for name, kw in (("svd_dim=2", {"svd_dim": 2}),
+                     ("subset_row+correct_all+out_on_host",
+                      {"subset_row": np.arange(0, 500, 2), "correct_all": True,
+                       "out_on_host": True})):
+        for dtype in (np.float64, np.float32):
+            mats = [m.astype(dtype) for m in small]
+            gpu = bt.mnn_correct(mats, sigma=0.1, var_adj=True, **kw)
+            cpu = bt.mnn_correct(mats, sigma=0.1, var_adj=True, device="cpu", **kw)
+            host = isinstance(gpu.corrected, np.ndarray)
+            g = gpu.corrected if host else gpu.corrected.cpu().numpy()
+            c = np.asarray(cpu.corrected)
+            a, b = pair_set(gpu.merge_info[0], 2000), pair_set(cpu.merge_info[0], 2000)
+            same_pairs = np.array_equal(np.sort(a), np.sort(b))
+            jac = np.intersect1d(a, b).size / np.union1d(a, b).size
+            err = float(np.abs(g - c).max()) / float(np.abs(c).max())
+            label = f"{name} {np.dtype(dtype).name}"
+            agree[label] = {"pair_jaccard": jac, "max_abs_diff_rel": err, "host_result": host}
+            print(f"  {label}: pair Jaccard {jac:.5f}, max |diff| {err:.3g} of max|corrected|",
+                  flush=True)
+            check(host == ("out_on_host" in kw), f"{label}: result on the host iff out_on_host")
+            # in fp32 the two devices round the exact search's distances
+            # differently, and a pair at a near-tie can come and go; one pair
+            # moves its cell's average and the smoothing around it
+            if dtype is np.float64 or same_pairs:
+                check(same_pairs and err <= 1e-4,
+                      f"{label}: identical pairs, card within 1e-4 x max|corrected| of the CPU")
+    return {"path": f"mnn_correct 2x{CLASSIC_N}x{GENES} sigma=0.1 var_adj",
+            "seconds": seconds[0], "seconds_second_run": seconds[1], "launches": launches,
+            "pairs": int(res.merge_info[0].pairs.shape[0]), "card_vs_cpu": agree}
+
+
+def phase_checkpoint(torch, np, bt, root):
+    """reduced_mnn with checkpoint_dir: an interrupted run resumed."""
+    import shutil
+
+    n = CKPT_N
+    print(f"phase 11: checkpoints, reduced_mnn on 3 x {n:,} x {DIMS}, 'auto', "
+          "resumed after its last step's files are gone", flush=True)
+    rng = np.random.default_rng(SEED)
+    mats = [torch.from_numpy(simulate(rng, n, DIMS, shift=0.4 * i)).cuda() for i in range(3)]
+    ck = os.path.join(root, "build", "chip_smoke_checkpoint")
+    shutil.rmtree(ck, ignore_errors=True)
+    # index_add_'s atomics would make two runs differ in their last bits and
+    # move near-tied tricube neighbours; deterministic algorithms make the
+    # resumed run reproduce the uninterrupted one
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        full = bt.reduced_mnn(mats, k=K, knn_method="auto", checkpoint_dir=ck)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        check(bt.MergeCheckpointer(ck).completed_steps == 2, "two steps saved")
+        meta_path = os.path.join(ck, "merge_meta.json")
+        with open(meta_path) as fh:
+            meta = json.load(fh)
+        for name in ("step_0001.npz", "step_0001_data.npy"):
+            os.remove(os.path.join(ck, name))
+        meta["completed"] = 1
+        with open(meta_path, "w") as fh:
+            json.dump(meta, fh)
+        t0 = time.perf_counter()
+        resumed = bt.reduced_mnn(mats, k=K, knn_method="auto", checkpoint_dir=ck)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    shutil.rmtree(ck, ignore_errors=True)
+    scale = float(full.corrected.abs().max())
+    err = float((resumed.corrected - full.corrected).abs().max()) / scale
+    check(err <= 1e-6, f"resumed equals uninterrupted within 1e-6 x max|corrected| ({err:.3g})")
+    same = all(np.array_equal(a.pairs, b.pairs)
+               for a, b in zip(full.merge_info, resumed.merge_info))
+    check(same, "identical pairs in both steps")
+    return {"path": f"reduced_mnn 3x{n}x{DIMS} auto checkpointed",
+            "seconds_uninterrupted": full_s, "seconds_resumed": resumed_s,
+            "max_abs_diff_rel": err}
+
+
 def main():
     import torch
 
@@ -740,21 +981,39 @@ def main():
     path_kernels = [knn_cuda.chunk_max_scores, topk_cuda.topk_rows,
                     rescore_cuda.rescore_subchunks]
 
-    k2 = phase_k2(torch, topk_cuda)
-    k1 = phase_k1(torch, knn_cuda, b1, b2)
-    launches, seconds, seconds_again, n_auto, n_exact, jaccard = phase_main_path(
-        torch, np, bt, path_kernels, b1, b2)
-    phase_card_vs_cpu(torch, np, bt)
-    k3 = phase_k3(torch, knn_cuda, rescore_cuda, topk_cuda, b1, b2)
-    k4, probe = phase_k4(torch, np, knn_cuda, pass1_cuda)
-    fast_launches, chunked_launches, fast_line = phase_fast_mnn(torch, np, bt, path_kernels)
-    config3 = phase_config3_card_vs_cpu(torch, np, bt)
+    phase_s = {0: build_s}
+
+    def timed(n, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[n] = time.perf_counter() - t0
+        print(f"  phase {n}: {phase_s[n]:.1f} s", flush=True)
+        return out
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    k2 = timed(1, phase_k2, torch, topk_cuda)
+    k1 = timed(2, phase_k1, torch, knn_cuda, b1, b2)
+    launches, seconds, seconds_again, n_auto, n_exact, jaccard = timed(
+        3, phase_main_path, torch, np, bt, path_kernels, b1, b2)
+    timed(4, phase_card_vs_cpu, torch, np, bt)
+    k3 = timed(5, phase_k3, torch, knn_cuda, rescore_cuda, topk_cuda, b1, b2)
+    k4, probe = timed(6, phase_k4, torch, np, knn_cuda, pass1_cuda)
+    fast_launches, chunked_launches, fast_line = timed(
+        7, phase_fast_mnn, torch, np, bt, path_kernels)
+    config3 = timed(8, phase_config3_card_vs_cpu, torch, np, bt)
+    fused_line = timed(9, phase_fused, torch, np, bt, path_kernels, b1, b2)
+    classic_line = timed(10, phase_classic, torch, np, bt, path_kernels)
+    ckpt_line = timed(11, phase_checkpoint, torch, np, bt, root)
 
     for entry in (k1, k2, k3):
         entry["launches"] = launches[entry["name"]]
-        entry["launches_by_path"] = {"reduced_mnn": launches[entry["name"]],
-                                     "fast_mnn": fast_launches[entry["name"]],
-                                     "fast_mnn_chunked": chunked_launches[entry["name"]]}
+        entry["launches_by_path"] = {
+            "reduced_mnn": launches[entry["name"]],
+            "fast_mnn": fast_launches[entry["name"]],
+            "fast_mnn_chunked": chunked_launches[entry["name"]],
+            "fused_merge_step": fused_line["auto"]["launches"][entry["name"]],
+            "fused_merge_step_exact": fused_line["exact"]["launches"][entry["name"]],
+            "mnn_correct": classic_line["launches"][entry["name"]]}
     k4["launches_by_path"] = {"pass1_precision_probe": k4["launches"]}
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(json.dumps({"main_path": "reduced_mnn 2x100000x50 k=20 auto",
@@ -766,6 +1025,10 @@ def main():
     print(json.dumps(fast_line), flush=True)
     print(json.dumps({"pass1_precision_probe": probe,
                       "config3_card_vs_cpu": config3}), flush=True)
+    print(json.dumps(fused_line), flush=True)
+    print(json.dumps(classic_line), flush=True)
+    print(json.dumps(ckpt_line), flush=True)
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)

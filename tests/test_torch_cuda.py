@@ -424,3 +424,71 @@ def test_chunked_selection_near_ties_on_the_card(exact_selection, card):
     assert out.indices.device.type == "cuda"
     assert torch.equal(out.indices, ref.indices)
     assert torch.allclose(out.distances, ref.distances, rtol=0.0, atol=1e-5)
+
+
+def _fused_inputs(n1, n2, d, seed):
+    rng = np.random.default_rng(seed)
+    left = rng.normal(size=(n1, d)).astype(np.float32)
+    right = (rng.normal(size=(n2, d)) + 0.7).astype(np.float32)
+    return left, right
+
+
+def test_fused_merge_step_card_matches_cpu(card):
+    from batchelor_torch import fused_merge_step
+
+    left, right = _fused_inputs(3000, 2500, 20, 11)
+    gpu = fused_merge_step(left, right, 20, 20, knn_method="exact")
+    cpu = fused_merge_step(left, right, 20, 20, knn_method="exact", device="cpu")
+    assert gpu.left.device.type == "cuda"
+    assert torch.equal(gpu.pair_mask.cpu(), cpu.pair_mask)
+    assert torch.equal(gpu.pair_targets.cpu(), cpu.pair_targets)
+    assert int(gpu.n_pairs) == int(cpu.n_pairs)
+    scale = float(cpu.right.abs().max())
+    for name in ("left", "right"):
+        assert float((getattr(gpu, name).cpu() - getattr(cpu, name)).abs().max()) <= 1e-4 * scale
+    assert abs(float(gpu.batch_size) - float(cpu.batch_size)) <= 1e-5 * float(cpu.batch_size)
+
+
+@pytest.mark.parametrize("method", ["chunked", "bf16"])
+@pytest.mark.parametrize("n_valid", [2000, 6])
+def test_two_pass_search_over_masked_data(method, n_valid, card):
+    """The fused step's tricube search: most data rows masked (90%, or all
+    but 6, fewer than k), against the CPU's plain version of the same
+    search. Indices agree up to near-ties, masked rows never come back at
+    a finite distance, and +inf stands exactly where the CPU has it."""
+    rng = np.random.default_rng(12)
+    q = rng.normal(size=(1500, 50)).astype(np.float32)
+    x = rng.normal(size=(20000, 50)).astype(np.float32)
+    mask = np.zeros(20000, bool)
+    mask[rng.choice(20000, n_valid, replace=False)] = True
+    gpu = query_knn(q, x, 20, data_mask=mask, method=method)
+    cpu = query_knn(q, x, 20, data_mask=mask, method=method, device="cpu")
+    fin = torch.isfinite(cpu.distances)
+    assert int(fin.sum()) == 1500 * min(20, n_valid)
+    assert torch.equal(torch.isfinite(gpu.distances.cpu()), fin)
+    gi = gpu.indices.cpu()
+    assert bool(torch.from_numpy(mask)[gi[fin]].all())
+    same = (gi == cpu.indices) & fin
+    agree = float(same.sum()) / float(fin.sum())
+    assert agree >= (0.999 if method == "chunked" else 0.99)
+    assert torch.allclose(gpu.distances.cpu()[same], cpu.distances[same], atol=1e-4)
+    if n_valid < 20:          # no near-ties among 6 rows: every index agrees
+        assert torch.equal(gi[fin], cpu.indices[fin])
+
+
+def test_fused_merge_step_second_call_does_not_sync(card):
+    from batchelor_torch import fused_merge_step
+
+    # 12,000^2 scores pass AUTO_MIN_SCORES: "auto" takes the two-pass search
+    left, right = (torch.from_numpy(a).cuda() for a in _fused_inputs(12000, 12000, 50, 13))
+    before = knn_cuda.chunk_max_scores.launches
+    warm = fused_merge_step(left, right, 20, 20, knn_method="auto")
+    assert knn_cuda.chunk_max_scores.launches > before
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = fused_merge_step(left, right, 20, 20, knn_method="auto")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again.pair_mask, warm.pair_mask)
+    assert bool(torch.isfinite(again.right).all())

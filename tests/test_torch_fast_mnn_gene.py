@@ -118,7 +118,7 @@ def test_fast_mnn_single_equals_list_and_names_follow_subset(rng):
     assert np.array_equal(sub.gene_names, genes[::3]) and sub.rotation.shape == (20, 5)
 
 
-def test_fast_mnn_argument_errors(rng):
+def test_fast_mnn_argument_errors(rng, tmp_path):
     b1, b2 = _batches(rng)
     with pytest.raises(ValueError):
         t_fast_mnn([b1], device="cpu")
@@ -126,7 +126,10 @@ def test_fast_mnn_argument_errors(rng):
         t_fast_mnn(np.concatenate([b1, b2]), device="cpu")
     with pytest.raises(ValueError):
         t_fast_mnn([b1, b2], d=10, batch_names=["x", "x"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_fast_mnn([b1, b2], checkpoint_dir="ckpt", device="cpu")
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    (ckpt / "merge_meta.json").write_text('{"version": 2, "completed": 0}')
+    with pytest.raises(ValueError, match="checkpoint version"):
+        t_fast_mnn([b1, b2], checkpoint_dir=str(ckpt), device="cpu")
     with pytest.raises(ValueError):
         t_reduced_mnn([b1[:, :5], b2[:, :5]], device="cpu").reconstructed()

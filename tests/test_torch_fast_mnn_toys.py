@@ -48,6 +48,9 @@ def test_reduced_mnn_cell_names_and_recorder(rng):
 
 
 def test_reduced_mnn_rejects_checkpoint_dir(rng, tmp_path):
-    b = [rng.normal(size=(30, 4)), rng.normal(size=(30, 4))]
-    with pytest.raises(NotImplementedError):
-        t_reduced_mnn(b, checkpoint_dir=str(tmp_path), device="cpu")
+    # checkpoint_dir works (tests/test_torch_checkpoint.py); a store written
+    # for another merge tree is rejected
+    b = [rng.normal(size=(30, 4)) + s for s in (0.0, 1.0, 2.0)]
+    t_reduced_mnn(b, checkpoint_dir=str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="merge tree"):
+        t_reduced_mnn(b, merge_order=[2, 0, 1], checkpoint_dir=str(tmp_path), device="cpu")
