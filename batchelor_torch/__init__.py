@@ -12,48 +12,136 @@ Ported so far: ``fast_mnn`` from gene space (cosine normalization,
 stage's ``save_pca_stage``/``load_pca_stage``), the fused merge step that
 never waits for the host (``fused_merge_step``), classic mnnCorrect
 (``mnn_correct``: Gaussian smoothing, bio-span removal, variance
-adjustment), and what they run: kNN search, MNN detection and the
-correction math.
+adjustment), clusterMNN (``cluster_mnn``), the linear engines
+(``rescale_batches``, ``regress_batches``, ``no_correct``), multiBatchNorm,
+the variance model and HVG selection, the diagnostics, the typed dispatch
+API (``batch_correct`` and its ``*Params``) and the pipelines
+(``quick_correct``, ``correct_experiments``, ``apply_multi``), and what
+they run: kNN search, MNN detection and the correction math. The CSR
+(out-of-core) inputs and the multi-device layer are not ported yet.
 """
 from .convert import from_numpy, pca_to_numpy, result_to_numpy
 from .correct.classic_mnn import mnn_correct
+from .correct.cluster_mnn import ClusterMNNResult, cluster_mnn, kmeans_clusters
+from .correct.diagnostics import (
+    MnnDeltaVarianceResult,
+    cluster_abundance_test,
+    cluster_abundance_var,
+    fit_trend_var,
+    mnn_delta_variance,
+    mnn_delta_variance_blocked,
+)
+from .correct.dispatch import (
+    BatchelorParams,
+    ClassicMNNParams,
+    FastMNNParams,
+    NoCorrectParams,
+    RegressParams,
+    RescaleParams,
+    batch_correct,
+    register_correction,
+)
+from .correct.experiments import (
+    QuickCorrectResult,
+    SingleCellDataset,
+    apply_multi,
+    correct_experiments,
+    quick_correct,
+)
 from .correct.fast_mnn import MergeStepInfo, MNNResult, fast_mnn, reduced_mnn
 from .correct.fused import FusedMergeOutput, fused_merge_step
+from .correct.linear import LinearCorrectionResult, no_correct, regress_batches, rescale_batches
 from .device import resolve_device
 from .io.checkpoint import MergeCheckpointer, load_pca_stage, save_pca_stage
-from .ops.cosine_norm import cosine_norm
+from .ops.correction import average_correction, center_along_batch_vector, tricube_average
+from .ops.cosine_norm import apply_cosine_norm, cosine_norm
 from .ops.knn import KNNResult, query_knn
 from .ops.lowrank import LowRankOp
-from .ops.mutual_nn import MNNPairs, find_mutual_nn, restricted_mnn
+from .ops.mutual_nn import MNNPairs, choose_k, find_mutual_nn, restricted_mnn
+from .ops.normalization import MultiBatchNormResult, multi_batch_norm
 from .ops.pca import MultiBatchPCAResult, multi_batch_pca
+from .ops.residual import ResidualOp
+from .ops.stats import GeneVarResult, combine_var, get_top_hvgs, model_gene_var
+from .utils.batching import (
+    check_batch_consistency,
+    check_restrictions,
+    divide_into_batches,
+    intersect_rows,
+    reindex_pairings,
+    restore_original_order,
+)
 from .utils.telemetry import MetricsRecorder, get_recorder, set_recorder, trace_span
 
 __all__ = [
-    "FusedMergeOutput",
-    "KNNResult",
-    "LowRankOp",
-    "MergeCheckpointer",
-    "MNNPairs",
-    "MNNResult",
-    "MergeStepInfo",
-    "MetricsRecorder",
-    "MultiBatchPCAResult",
+    "apply_cosine_norm",
+    "apply_multi",
+    "average_correction",
+    "batch_correct",
+    "BatchelorParams",
+    "center_along_batch_vector",
+    "check_batch_consistency",
+    "check_restrictions",
+    "choose_k",
+    "ClassicMNNParams",
+    "cluster_abundance_test",
+    "cluster_abundance_var",
+    "cluster_mnn",
+    "ClusterMNNResult",
+    "combine_var",
+    "correct_experiments",
     "cosine_norm",
+    "divide_into_batches",
     "fast_mnn",
+    "FastMNNParams",
     "find_mutual_nn",
+    "fit_trend_var",
     "from_numpy",
     "fused_merge_step",
+    "FusedMergeOutput",
+    "GeneVarResult",
     "get_recorder",
+    "get_top_hvgs",
+    "intersect_rows",
+    "kmeans_clusters",
+    "KNNResult",
+    "LinearCorrectionResult",
     "load_pca_stage",
+    "LowRankOp",
+    "MergeCheckpointer",
+    "MergeStepInfo",
+    "MetricsRecorder",
     "mnn_correct",
+    "mnn_delta_variance",
+    "mnn_delta_variance_blocked",
+    "MnnDeltaVarianceResult",
+    "MNNPairs",
+    "MNNResult",
+    "model_gene_var",
+    "multi_batch_norm",
     "multi_batch_pca",
+    "MultiBatchNormResult",
+    "MultiBatchPCAResult",
+    "no_correct",
+    "NoCorrectParams",
     "pca_to_numpy",
     "query_knn",
+    "quick_correct",
+    "QuickCorrectResult",
     "reduced_mnn",
+    "register_correction",
+    "regress_batches",
+    "RegressParams",
+    "reindex_pairings",
+    "rescale_batches",
+    "RescaleParams",
+    "ResidualOp",
     "resolve_device",
+    "restore_original_order",
     "restricted_mnn",
     "result_to_numpy",
     "save_pca_stage",
     "set_recorder",
+    "SingleCellDataset",
     "trace_span",
+    "tricube_average",
 ]

@@ -12,7 +12,9 @@ import dataclasses
 
 import numpy as np
 
+from .correct.cluster_mnn import ClusterMNNResult
 from .correct.fast_mnn import MNNResult
+from .correct.linear import LinearCorrectionResult
 from .device import DeviceLike, as_tensor, resolve_device
 from .ops.pca import MultiBatchPCAResult
 
@@ -34,11 +36,22 @@ def _host(t):
     return None if t is None else t.detach().cpu().numpy()
 
 
-def result_to_numpy(res: MNNResult) -> MNNResult:
-    """A copy of ``res`` whose ``corrected``, ``rotation`` and ``centers``
-    are host numpy arrays."""
-    return dataclasses.replace(res, corrected=_host(res.corrected),
-                               rotation=_host(res.rotation), centers=_host(res.centers))
+def result_to_numpy(res):
+    """A copy of a correction result whose tensors are host numpy arrays:
+    ``corrected``, ``rotation`` and ``centers`` of an ``MNNResult``; those
+    and the centroid result of a ``ClusterMNNResult``; ``corrected`` and
+    ``corrected_pcs`` of a ``LinearCorrectionResult`` (its ``residual_op``
+    stays on the device)."""
+    if isinstance(res, LinearCorrectionResult):
+        return dataclasses.replace(res, corrected=_host(res.corrected),
+                                   corrected_pcs=_host(res.corrected_pcs))
+    if not isinstance(res, (MNNResult, ClusterMNNResult)):
+        raise TypeError(f"no numpy form for {type(res).__name__}")
+    out = dataclasses.replace(res, corrected=_host(res.corrected),
+                              rotation=_host(res.rotation), centers=_host(res.centers))
+    if isinstance(res, ClusterMNNResult):
+        out.centroid_result = result_to_numpy(res.centroid_result)
+    return out
 
 
 def pca_to_numpy(res: MultiBatchPCAResult) -> MultiBatchPCAResult:

@@ -33,7 +33,10 @@ def as_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> t
     """``x`` (tensor or array-like) as a tensor on ``device``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
+    a = np.asarray(x)
+    if any(s < 0 for s in a.strides):       # a reversed view: torch takes no negative stride
+        a = a.copy()
+    return torch.as_tensor(a, device=device, dtype=dtype)
 
 
 @contextlib.contextmanager

@@ -3,7 +3,7 @@
 A copy of the numpy code of ``batchelor_tpu/utils/batching.py`` that the
 merge path needs (the port imports nothing of the JAX package), mirroring
 the reference's R/divideIntoBatches.R:36-100, R/utils_reorder.R:1-36,
-R/utils_subset.R:2-18 and R/checkInputs.R:42-120.
+R/utils_subset.R:2-18, R/checkInputs.R:42-120 and R/intersectRows.R:53-80.
 
 Conventions: cells are rows of every matrix handed to the engine, indices
 are 0-based, and restrictions are integer index arrays.
@@ -24,6 +24,7 @@ __all__ = [
     "combine_restrict",
     "generate_cell_names",
     "subset_to_index",
+    "intersect_rows",
     "DividedBatches",
 ]
 
@@ -280,3 +281,41 @@ def combine_restrict(
     lr = np.arange(n_left, dtype=np.int64) if left_restrict is None else np.asarray(left_restrict)
     rr = np.arange(n_right, dtype=np.int64) if right_restrict is None else np.asarray(right_restrict)
     return np.concatenate([lr, rr + n_left])
+
+
+def intersect_rows(
+    batches: Sequence[Any],
+    feature_names: Sequence[Sequence[str]],
+    *,
+    subset: Optional[Sequence[str]] = None,
+    keep_all: bool = False,
+    cells_in_rows: bool = True,
+):
+    """Subset all batches (arrays or tensors) to their common feature universe.
+
+    Mirrors intersectRows (reference R/intersectRows.R:53-80): the universe is
+    the ordered intersection of feature-name lists; ``subset`` (names) may
+    further subset unless ``keep_all``.
+
+    Returns (new_batches, universe_names).
+    """
+    sets = [set(fn) for fn in feature_names]
+    universe = [nm for nm in feature_names[0] if all(nm in s for s in sets[1:])]
+    if len(universe) == 0:
+        raise ValueError("no genes remaining in the intersection")
+
+    out = []
+    for x, fn in zip(batches, feature_names):
+        lookup = {nm: i for i, nm in enumerate(fn)}
+        idx = np.array([lookup[nm] for nm in universe], dtype=np.int64)
+        if list(fn) != universe:
+            x = x[:, idx] if cells_in_rows else x[idx]
+        out.append(x)
+
+    names = list(universe)
+    if subset is not None and not keep_all:
+        lookup = {nm: i for i, nm in enumerate(names)}
+        idx = np.array([lookup[str(nm)] for nm in subset], dtype=np.int64)
+        out = [(x[:, idx] if cells_in_rows else x[idx]) for x in out]
+        names = [names[i] for i in idx]
+    return out, names

@@ -9,8 +9,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      all started together);
   1. kernel K2 (topk_rows) against its plain version at the main path's
      shapes, with planted ties and -inf pads, and on rows with fewer finite
-     entries than k, rows of 60,000 columns, ascending and all-equal rows:
-     identical values and indices;
+     entries than k, rows of 60,000 columns, ascending and all-equal rows,
+     and cluster_mnn's narrow rows (5 and 33 columns, k = 1): identical
+     values and indices;
   2. kernel K1 (chunk_max_scores) against its plain version in its three
      modes on the main path's data (N_d = 100352, dpad = 64, first 4096
      queries): |diff| <= 2^-20 * max|s| of the query column, and the bf16
@@ -74,12 +75,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
  11. checkpoints: reduced_mnn on 3 x 20,000 x 50 ("auto") with
      checkpoint_dir under build/, its last step's files deleted, then run
      again: the resumed result within 1e-6 x max|corrected| of the
-     uninterrupted one, with identical pairs.
+     uninterrupted one, with identical pairs;
+ 12. quick_correct on raw counts, 2 x 100,000 cells x 5,000 genes drawn on
+     the card (Poisson of the simulation's log-means, 4 cell types, batch 2
+     shifted), hvg_n = 2,000, FastMNNParams(d=50, knn_method="auto"),
+     correct_all: first and second call with the seconds of its
+     normalization, variance model and correction, K1, K2 and K3 on the
+     launch counters, one call profiled; then the card against the CPU at
+     2 x 2,000 x 500 in fp64: the same HVGs, identical pairs, corrected
+     within 1e-6 x max|corrected| after sign alignment;
+ 13. cluster_mnn on bench.py config 4's atlas (8 x 100,000 cells x 500
+     genes, log1p |x| of the simulation, its labels as clusters): first
+     and second call, K2 on the launch counter, one call profiled; the
+     k-means path (clusters=4) on 2 of the batches; then the card against
+     the CPU at 8 x 2,000 x 100 in fp64: the same centroid pairs (the
+     centroids at one position, an exact tie, taken as one), the same
+     cluster_meta, corrected within 1e-6 in gene space;
+ 14. batch_correct with RescaleParams, RegressParams(d=50) and
+     NoCorrectParams on phase 12's 2 x 100,000 x 2,000 HVG log-expression,
+     mnn_delta_variance over its pairs, cluster_abundance_test and _var on
+     phase 13's 800,000 labels, each timed; then each card against CPU in
+     fp64 at a small size (1e-10; the abundance statistics 1e-12).
 It prints each phase's seconds, the build time, one {"kernels": [...]} line with each kernel's
-launches on its path, times (median of CUDA-event timings), bound and
-library yardstick, one line each with the reduced_mnn and fast_mnn paths'
-seconds, the card's name and power limit, and last {"ok": true, "device":
-{...}}. Without a CUDA device, or outside a checkout of the repository, it
+launches on each path, times (median of CUDA-event timings), bound and
+library yardstick, one line for each path's seconds, the card's name and
+power limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
 import json
@@ -104,8 +124,9 @@ PAIR_JACCARD_MIN = 0.97
 FAST_AUTO_JACCARD_MIN = 0.80   # bf16 selection on fast_mnn's crowded PCs (phase 7)
 
 
-def simulate(rng, n, g, shift=0.0, n_types=4, noise=0.5):
-    """Cells from a few types plus noise and a batch shift (bench.py::_simulate)."""
+def simulate(rng, n, g, shift=0.0, n_types=4, noise=0.5, labels=False):
+    """Cells from a few types plus noise and a batch shift (bench.py::_simulate);
+    with ``labels`` also each cell's type."""
     import numpy as np
 
     means = rng.normal(size=(n_types, g)).astype(np.float32)
@@ -113,7 +134,7 @@ def simulate(rng, n, g, shift=0.0, n_types=4, noise=0.5):
     x = means[assign] + rng.normal(size=(n, g)).astype(np.float32) * noise
     if shift:
         x = x + (rng.normal(size=(1, g)) * shift).astype(np.float32)
-    return x.astype(np.float32)
+    return (x.astype(np.float32), assign) if labels else x.astype(np.float32)
 
 
 def cuda_ms(torch, fn, reps):
@@ -174,12 +195,21 @@ def check(cond, what):
     print(f"  ok: {what}", flush=True)
 
 
-K2_TIMED = ((100352, 3136), (100000, 640), (16384, 8212), (16384, 640))
+# (rows, width, k): the main path's four shapes, then cluster_mnn's
+# nearest-centroid search (k = 1 over the running best and 4 centroids, in
+# 16,384-row query tiles) and a width past one warp's 32 lanes
+K2_TIMED = ((100352, 3136, K), (100000, 640, K), (16384, 8212, K), (16384, 640, K),
+            (16384, 5, 1), (100000, 33, 1))
 
 
 def k2_input(torch, gen, n, w):
-    """K2's timed input: normal rows with planted ties and -inf pad columns."""
+    """K2's timed input: normal rows with planted ties and -inf pad columns
+    (narrow rows: a tie of the first and last column, and -inf rows)."""
     x = torch.randn(n, w, device="cuda", generator=gen)
+    if w < 64:
+        x[::3, w - 1] = x[::3, 0]
+        x[1::5] = float("-inf")
+        return x
     x[:, [7, 100, w - 40]] = 6.0                          # planted ties
     x[::7, 11] = 6.0
     x[:, w - 30:] = float("-inf")                          # pad columns
@@ -204,7 +234,7 @@ def phase_k2(torch, topk_cuda):
     ascending = torch.arange(3136, device="cuda", dtype=torch.float32).repeat(4, 1)
     cases = [(few, 4), (wide, K), (wide, 64), (ascending, K),
              (torch.ones(5, 3136, device="cuda"), 64)]
-    cases += [(k2_input(torch, gen, n, w), K) for n, w in K2_TIMED]
+    cases += [(k2_input(torch, gen, n, w), k) for n, w, k in K2_TIMED]
     for x, k in cases:
         v, i = topk_cuda.topk_rows(x, k)
         pv, pi = topk_cuda.topk_rows_plain(x, k)
@@ -212,11 +242,11 @@ def phase_k2(torch, topk_cuda):
         check(torch.equal(v, pv) and torch.equal(i, pi),
               f"K2 {tuple(x.shape)} k={k}: values and indices identical")
         max_err = max(max_err, float((v - pv).abs().nan_to_num(0.0).max()))
-        if tuple(x.shape) not in K2_TIMED:
+        if (*x.shape, k) not in K2_TIMED:
             continue
         n, w = x.shape
         entries.append({
-            "shape": [n, w],
+            "shape": [n, w], "k": k,
             "ms": cuda_ms(torch, lambda: topk_cuda.topk_rows(x, k), 10),
             "plain_ms": cuda_ms(torch, lambda: topk_cuda.topk_rows_plain(x, k), 3),
             "library_ms": cuda_ms(torch, lambda: torch.topk(x, k, dim=1), 10),
@@ -760,7 +790,7 @@ def profiled(torch, fn):
         # timeline, over the kernels they enclose: counting them would count
         # those kernels twice
         if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or evt.name.startswith("fastmnn/")):
+                or evt.name.startswith(("fastmnn/", "quickcorrect/"))):
             continue
         name = evt.name.replace("(anonymous namespace)::", "").split("(")[0][:60]
         runs, ms = by_name.get(name, (0, 0.0))
@@ -771,6 +801,13 @@ def profiled(torch, fn):
             "idle_share": 1.0 - device_ms / wall_ms,
             "device_launches": sum(runs for runs, _ in by_name.values()),
             "top_kernels": [{"name": k, "launches": r, "ms": m} for k, (r, m) in top]}
+
+
+def print_profile(p, what):
+    print(f"  {what} profiled: wall {p['wall_ms']:.2f} ms, device {p['device_ms']:.2f} ms, "
+          f"idle share {p['idle_share']:.3f}, {p['device_launches']} device launches", flush=True)
+    for t in p["top_kernels"]:
+        print(f"    {t['ms']:8.3f} ms {t['launches']:5d} x {t['name']}", flush=True)
 
 
 def fused_pair_set(np, out, n1, n):
@@ -843,11 +880,7 @@ def phase_fused(torch, np, bt, path_kernels, b1, b2):
             [left, right], k=K, knn_method="auto")),
     }
     for name, p in prof.items():
-        print(f"  {name} 'auto' profiled: wall {p['wall_ms']:.2f} ms, device "
-              f"{p['device_ms']:.2f} ms, idle share {p['idle_share']:.3f}, "
-              f"{p['device_launches']} device launches", flush=True)
-        for t in p["top_kernels"]:
-            print(f"    {t['ms']:8.3f} ms {t['launches']:5d} x {t['name']}", flush=True)
+        print_profile(p, f"{name} 'auto'")
     return {"path": f"fused_merge_step 2x{N_CELLS}x{DIMS} k={K}", **out, "profiled": prof}
 
 
@@ -959,6 +992,269 @@ def phase_checkpoint(torch, np, bt, root):
             "max_abs_diff_rel": err}
 
 
+QC_N = 100_000                 # quick_correct's cells a batch (phase 12)
+QC_GENES = 5_000               # its genes: bench.py's gene-space width
+HVG_N = 2_000                  # its highly variable genes
+CLUSTER_N = 100_000            # cluster_mnn's cells a batch, 8 batches (phase 13)
+CLUSTER_GENES = 500            # bench.py config 4: min(N_GENES, 500)
+
+
+def card_counts(torch, gen, means, n, shift):
+    """Raw counts drawn on the card: Poisson of exp(type mean + 0.5 noise
+    (+ the batch's shift)), the simulation's log-means, from ``gen``."""
+    assign = torch.randint(0, means.shape[0], (n,), device="cuda", generator=gen)
+    logmean = means[assign] + 0.5 * torch.randn(n, means.shape[1], device="cuda", generator=gen)
+    if shift is not None:
+        logmean += shift
+    return torch.poisson(logmean.exp_(), generator=gen)
+
+
+def quick_counts(torch, n, genes):
+    """Two batches of raw counts on the card, the second shifted."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    means = torch.randn(4, genes, device="cuda", generator=gen)
+    shift = 0.8 * torch.randn(1, genes, device="cuda", generator=gen)
+    return [card_counts(torch, gen, means, n, None), card_counts(torch, gen, means, n, shift)]
+
+
+def aligned_diff(torch, gpu, cpu):
+    """max |card - CPU| of corrected PCs over max |CPU|, each card column
+    turned to the sign of the CPU's rotation column."""
+    sign = torch.sign(torch.diagonal(gpu.rotation.cpu().double().T @ cpu.rotation.double()))
+    want = cpu.corrected.double()
+    return float((gpu.corrected.cpu().double() * sign - want).abs().max() / want.abs().max())
+
+
+def gene_space_diff(gpu, cpu):
+    """max |card - CPU| of corrected @ rotation.T over its max |CPU|: blind to
+    the signs and bases the PCA's eigensolvers choose."""
+    def genes(res):
+        return res.corrected.cpu().double() @ res.rotation.cpu().double().T
+    want = genes(cpu)
+    return float((genes(gpu) - want).abs().max() / want.abs().max())
+
+
+def phase_quick_correct(torch, np, bt, path_kernels):
+    """quick_correct from raw counts at 2 x 100,000 x 5,000; returns (its line,
+    its result, the counts, the launches)."""
+    print(f"phase 12: quick_correct, raw counts 2 x {QC_N:,} x {QC_GENES:,} genes, "
+          f"hvg_n={HVG_N}, FastMNNParams(d={DIMS}, knn_method='auto'), correct_all", flush=True)
+    t0 = time.perf_counter()
+    counts = quick_counts(torch, QC_N, QC_GENES)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    params = bt.FastMNNParams(d=DIMS, knn_method="auto")
+    runs = []
+    for run in ("first", "second"):
+        rec = bt.MetricsRecorder()
+        if run == "first":
+            zero_counts(path_kernels)
+        with rec.activate():
+            t0 = time.perf_counter()
+            res = bt.quick_correct(counts, hvg_n=HVG_N, params=params, correct_all=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if run == "first":
+            launches = read_counts(path_kernels)
+            check(all(v > 0 for v in launches.values()), f"K1, K2 and K3 ran: {launches}")
+        spans = {k: sum(v) for k, v in rec.spans.items()}
+        split = {"normalize_s": spans.get("quickcorrect/normalize", 0.0),
+                 "model_gene_var_s": spans.get("quickcorrect/model_gene_var", 0.0),
+                 "correct_s": spans.get("quickcorrect/correct", 0.0)}
+        runs.append({"seconds": seconds, **split})
+        print(f"  {run} run: {seconds:.3f} s {split}", flush=True)
+    prof = profiled(torch, lambda: bt.quick_correct(counts, hvg_n=HVG_N, params=params,
+                                                    correct_all=True))
+    print_profile(prof, "quick_correct")
+    out = res.corrected
+    check(res.hvgs.shape == (HVG_N,) and len(set(res.hvgs.tolist())) == HVG_N,
+          f"{HVG_N} distinct HVGs")
+    check(tuple(out.corrected.shape) == (2 * QC_N, DIMS) and bool(torch.isfinite(out.corrected).all())
+          and tuple(out.rotation.shape) == (QC_GENES, DIMS),
+          f"corrected is finite, ({2 * QC_N}, {DIMS}); rotation ({QC_GENES}, {DIMS}); "
+          f"{out.merge_info[0].pairs.shape[0]} pairs")
+
+    small = [c.cpu().double() for c in quick_counts(torch, 2000, 500)]
+    kw = dict(hvg_n=200, params=bt.FastMNNParams(d=DIMS, knn_method="auto"))
+    gpu = bt.quick_correct(small, **kw)
+    cpu = bt.quick_correct(small, device="cpu", **kw)
+    check(np.array_equal(gpu.hvgs, cpu.hvgs), "2 x 2,000 x 500 fp64: the same HVGs")
+    check(np.array_equal(gpu.corrected.merge_info[0].pairs, cpu.corrected.merge_info[0].pairs),
+          f"2 x 2,000 x 500 fp64: identical pairs ({cpu.corrected.merge_info[0].pairs.shape[0]})")
+    err = aligned_diff(torch, gpu.corrected, cpu.corrected)
+    check(err <= 1e-6, f"2 x 2,000 x 500 fp64: corrected within 1e-6 x max|corrected| after "
+                       f"sign alignment ({err:.3g})")
+    line = {"path": f"quick_correct 2x{QC_N}x{QC_GENES} hvg_n={HVG_N} d={DIMS} auto",
+            "draw_counts_s": draw_s, "seconds": runs[0]["seconds"],
+            "seconds_second_run": runs[1]["seconds"],
+            "split_first_run": {k: v for k, v in runs[0].items() if k != "seconds"},
+            "split_second_run": {k: v for k, v in runs[1].items() if k != "seconds"},
+            "pairs": int(out.merge_info[0].pairs.shape[0]), "card_vs_cpu_rel_diff": err,
+            "profiled": prof}
+    return line, res, counts, launches
+
+
+def cluster_inputs(np, n, genes, dtype):
+    """bench.py config 4's atlas: 8 batches of log1p |x| of the simulation
+    with shift 0.3 i, and the simulation's labels as clusters."""
+    rng = np.random.default_rng(SEED)
+    mats, labels = [], []
+    for i in range(8):
+        x, assign = simulate(rng, n, genes, shift=0.3 * i, labels=True)
+        mats.append(np.log1p(np.abs(x)).astype(dtype))
+        labels.append(assign)
+    return mats, labels
+
+
+def phase_cluster(torch, np, bt, path_kernels):
+    """cluster_mnn at 8 x 100,000 x 500; returns (its line, the labels, the launches)."""
+    print(f"phase 13: cluster_mnn, 8 x {CLUSTER_N:,} x {CLUSTER_GENES} genes (bench.py config 4), "
+          "then clusters=4 (k-means) on 2 batches", flush=True)
+    t0 = time.perf_counter()
+    host, labels = cluster_inputs(np, CLUSTER_N, CLUSTER_GENES, np.float32)
+    mats = [torch.from_numpy(m).cuda() for m in host]
+    torch.cuda.synchronize()
+    inputs_s = time.perf_counter() - t0
+    del host
+    seconds = []
+    for run in ("first", "second"):
+        if run == "first":
+            zero_counts(path_kernels)
+        t0 = time.perf_counter()
+        res = bt.cluster_mnn(mats, clusters=labels)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if run == "first":
+            launches = read_counts(path_kernels)
+            check(launches["topk_rows"] > 0, f"K2 ran in the nearest-centroid searches: {launches}")
+        print(f"  {run} run: {seconds[-1]:.3f} s", flush=True)
+    prof = profiled(torch, lambda: bt.cluster_mnn(mats, clusters=labels))
+    print_profile(prof, "cluster_mnn")
+    n_cent = len(res.cluster_meta["meta"])
+    check(tuple(res.corrected.shape) == (8 * CLUSTER_N, n_cent - 1)
+          and bool(torch.isfinite(res.corrected).all()),
+          f"corrected is finite, ({8 * CLUSTER_N}, {n_cent - 1}); {n_cent} centroids in "
+          f"{len(set(res.cluster_meta['meta'].tolist()))} meta-clusters")
+    kmeans_s = []
+    for run in ("first", "second"):
+        t0 = time.perf_counter()
+        auto = bt.cluster_mnn(mats[:2], clusters=4)
+        torch.cuda.synchronize()
+        kmeans_s.append(time.perf_counter() - t0)
+        print(f"  clusters=4 on 2 batches, {run} run: {kmeans_s[-1]:.3f} s", flush=True)
+    agree = sum(len(set(zip(auto.cluster[i * CLUSTER_N:(i + 1) * CLUSTER_N].tolist(),
+                            labels[i].tolist()))) for i in range(2))
+    print(f"  k-means labels against the simulation's: {agree} distinct (k-means, type) "
+          "pairs over the 2 batches (8: the same partitions)", flush=True)
+    check(bool(torch.isfinite(auto.corrected).all()), "clusters=4: corrected is finite")
+
+    small, small_labels = cluster_inputs(np, 2000, 100, np.float64)
+    gpu = bt.cluster_mnn(small, clusters=small_labels)
+    cpu = bt.cluster_mnn(small, clusters=small_labels, device="cpu")
+    # The simulation draws each batch's type means anew, so most merge steps
+    # find one centroid pair, which moves the right centroid onto its left
+    # partner; a later centroid then has two nearest left centroids at one
+    # position, an exact tie that rounding decides (the CPU alone flips it
+    # under a 1e-13 relative perturbation of the input). Name each centroid
+    # by the lowest-numbered centroid at its corrected position (the CPU's)
+    # before comparing the pairs.
+    pos = cpu.centroid_result.corrected.double()
+    dist = torch.cdist(pos, pos, compute_mode="donot_use_mm_for_euclid_dist")
+    same = (dist <= 1e-9 * float(pos.abs().max())) | torch.eye(pos.shape[0], dtype=torch.bool)
+    canon = same.double().argmax(1).tolist()
+    steps = list(zip(gpu.centroid_result.merge_info, cpu.centroid_result.merge_info))
+    by_index = sum(set(map(tuple, a.pairs.tolist())) != set(map(tuple, b.pairs.tolist()))
+                   for a, b in steps)
+    same = all({(canon[i], canon[j]) for i, j in a.pairs.tolist()}
+               == {(canon[i], canon[j]) for i, j in b.pairs.tolist()} for a, b in steps)
+    check(same, f"8 x 2,000 x 100 fp64: the same centroid pairs in every step, centroids at "
+                f"one position taken as one ({by_index} of {len(steps)} steps differ by index)")
+    check(all(np.array_equal(gpu.cluster_meta[k], cpu.cluster_meta[k])
+              for k in ("cluster", "batch", "meta")), "8 x 2,000 x 100 fp64: the same cluster_meta")
+    err = gene_space_diff(gpu, cpu)
+    check(err <= 1e-6, f"8 x 2,000 x 100 fp64: corrected within 1e-6 x max in gene space ({err:.3g})")
+    line = {"path": f"cluster_mnn 8x{CLUSTER_N}x{CLUSTER_GENES}", "inputs_s": inputs_s,
+            "seconds": seconds[0], "seconds_second_run": seconds[1],
+            "kmeans_2_batches_seconds": kmeans_s[0],
+            "kmeans_2_batches_seconds_second_run": kmeans_s[1],
+            "kmeans_type_pairs": agree, "centroids": n_cent, "card_vs_cpu_rel_diff": err,
+            "card_vs_cpu_steps_differing_by_index": by_index, "profiled": prof}
+    return line, labels, launches
+
+
+def phase_engines(torch, np, bt, qc, counts, labels):
+    """rescale, regress and noCorrect on phase 12's HVG log-expression, the
+    delta variance over its pairs, the abundance tests on phase 13's labels;
+    each card against CPU at a small size. Returns its line."""
+    print(f"phase 14: batch_correct (rescale, regress d={DIMS}, none) on 2 x {QC_N:,} x {HVG_N:,} "
+          "log-expression, mnn_delta_variance, cluster_abundance_test/var", flush=True)
+    line = {}
+
+    def timed_call(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        line[name + "_s"] = time.perf_counter() - t0
+        print(f"  {name}: {line[name + '_s']:.3f} s", flush=True)
+        return out
+
+    logs = bt.multi_batch_norm(counts).logcounts
+    hv = torch.from_numpy(qc.hvgs).cuda()
+    sub = [lg[:, hv] for lg in logs]
+    for name, params in (("rescale", bt.RescaleParams()), ("regress", bt.RegressParams(d=DIMS)),
+                         ("no_correct", bt.NoCorrectParams())):
+        for run in ("first", "second"):
+            out = timed_call(f"{name}_{run}", lambda: bt.batch_correct(sub, params=params))
+        check(tuple(out.corrected.shape) == (2 * QC_N, HVG_N)
+              and bool(torch.isfinite(out.corrected).all()), f"{name}: finite, ({2 * QC_N}, {HVG_N})")
+        if name == "regress":
+            check(tuple(out.corrected_pcs.shape) == (2 * QC_N, DIMS)
+                  and bool(torch.isfinite(out.corrected_pcs).all()),
+                  f"regress: corrected_pcs finite, ({2 * QC_N}, {DIMS})")
+        del out
+    del sub
+    pairs = [i.pairs for i in qc.corrected.merge_info]
+    dv = timed_call("mnn_delta_variance", lambda: bt.mnn_delta_variance(
+        logs, pairs, subset_row=qc.hvgs))
+    check(dv.adjusted.shape == (HVG_N,) and bool(np.isfinite(dv.adjusted).all()),
+          f"mnn_delta_variance: finite, ({HVG_N},) over {pairs[0].shape[0]} pairs")
+    del logs
+    x = np.concatenate(labels)
+    batch = np.repeat(np.arange(len(labels)), [lab.size for lab in labels])
+    p = timed_call("cluster_abundance_test", lambda: bt.cluster_abundance_test(x, batch))
+    v = timed_call("cluster_abundance_var", lambda: bt.cluster_abundance_var(x, batch))
+    check(p.shape == (4,) and bool(((p >= 0) & (p <= 1)).all()) and v.shape == (4,),
+          f"abundance over {x.size:,} cells: p-values {np.round(p, 6).tolist()}")
+
+    # card against CPU, fp64, small
+    rng = np.random.default_rng(SEED)
+    mats = [np.log1p(np.abs(simulate(rng, 1000, 200, shift=0.8 * i))).astype(np.float64)
+            for i in range(2)]
+    for name, params in (("rescale", bt.RescaleParams()),
+                         ("regress", bt.RegressParams(d=10, keep=[0])),
+                         ("no_correct", bt.NoCorrectParams())):
+        kw = dict(params=params, restrict=[None, np.arange(0, 1000, 3)])
+        gpu, cpu = bt.batch_correct(mats, **kw), bt.batch_correct(mats, device="cpu", **kw)
+        err = float((gpu.corrected.cpu() - cpu.corrected).abs().max())
+        check(err <= 1e-10, f"{name} 2 x 1,000 x 200 fp64: card within 1e-10 of the CPU ({err:.3g})")
+        if name == "regress":
+            sign = torch.sign((gpu.corrected_pcs.cpu() * cpu.corrected_pcs).sum(0))
+            err = float((gpu.corrected_pcs.cpu() * sign - cpu.corrected_pcs).abs().max())
+            check(err <= 1e-8, f"regress d=10: PCs within 1e-8 after sign alignment ({err:.3g})")
+    pr = [np.stack([rng.integers(0, 1000, 300), 1000 + rng.integers(0, 1000, 300)], 1)]
+    for fn, kw in ((bt.mnn_delta_variance, {"cos_norm": True}),
+                   (bt.mnn_delta_variance_blocked, {"chunk_pairs": 128})):
+        gpu, cpu = fn(mats, pr, **kw), fn(mats, pr, device="cpu", **kw)
+        err = max(float(np.abs(getattr(gpu, f) - getattr(cpu, f)).max())
+                  for f in ("mean", "total", "trend", "adjusted"))
+        check(err <= 1e-10, f"{fn.__name__} 2 x 1,000 x 200 fp64: card within 1e-10 ({err:.3g})")
+    sx, sb = rng.integers(0, 6, 5000), rng.integers(0, 3, 5000)
+    for fn in (bt.cluster_abundance_test, bt.cluster_abundance_var):
+        err = float(np.abs(fn(sx, sb) - fn(sx, sb, device="cpu")).max())
+        check(err <= 1e-12, f"{fn.__name__}: card within 1e-12 of the CPU ({err:.3g})")
+    return {"path": f"engines and diagnostics on 2x{QC_N}x{HVG_N}", **line}
+
+
 def main():
     import torch
 
@@ -1004,6 +1300,9 @@ def main():
     fused_line = timed(9, phase_fused, torch, np, bt, path_kernels, b1, b2)
     classic_line = timed(10, phase_classic, torch, np, bt, path_kernels)
     ckpt_line = timed(11, phase_checkpoint, torch, np, bt, root)
+    qc_line, qc, counts, qc_launches = timed(12, phase_quick_correct, torch, np, bt, path_kernels)
+    cluster_line, labels, cluster_launches = timed(13, phase_cluster, torch, np, bt, path_kernels)
+    engines_line = timed(14, phase_engines, torch, np, bt, qc, counts, labels)
 
     for entry in (k1, k2, k3):
         entry["launches"] = launches[entry["name"]]
@@ -1013,7 +1312,9 @@ def main():
             "fast_mnn_chunked": chunked_launches[entry["name"]],
             "fused_merge_step": fused_line["auto"]["launches"][entry["name"]],
             "fused_merge_step_exact": fused_line["exact"]["launches"][entry["name"]],
-            "mnn_correct": classic_line["launches"][entry["name"]]}
+            "mnn_correct": classic_line["launches"][entry["name"]],
+            "quick_correct": qc_launches[entry["name"]],
+            "cluster_mnn": cluster_launches[entry["name"]]}
     k4["launches_by_path"] = {"pass1_precision_probe": k4["launches"]}
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(json.dumps({"main_path": "reduced_mnn 2x100000x50 k=20 auto",
@@ -1028,6 +1329,9 @@ def main():
     print(json.dumps(fused_line), flush=True)
     print(json.dumps(classic_line), flush=True)
     print(json.dumps(ckpt_line), flush=True)
+    print(json.dumps(qc_line), flush=True)
+    print(json.dumps(cluster_line), flush=True)
+    print(json.dumps(engines_line), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

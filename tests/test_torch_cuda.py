@@ -492,3 +492,77 @@ def test_fused_merge_step_second_call_does_not_sync(card):
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(again.pair_mask, warm.pair_mask)
     assert bool(torch.isfinite(again.right).all())
+
+
+@pytest.mark.parametrize("w", [2, 3, 5, 8, 17, 32, 33, 40])
+def test_topk_rows_kernel_on_narrow_rows_with_k1(w, card):
+    # cluster_mnn's nearest-centroid search: the running best beside a few
+    # centroids (a row of 1 + C columns), k = 1, in 16,384-row query tiles
+    x = torch.randn(16384, w, device="cuda", generator=card)
+    x[::3, w - 1] = x[::3, 0]                            # ties go to the lower column
+    x[1::5, :] = float("-inf")                           # rows without a finite entry
+    x[2::7, 1:] = float("-inf")
+    odd = _k2_rows(21, w, 1, card)
+    for rows in (x, odd):
+        before = topk_cuda.topk_rows.launches
+        v, i = topk_cuda.topk_rows(rows, 1)
+        pv, pi = topk_cuda.topk_rows_plain(rows, 1)
+        torch.cuda.synchronize()
+        assert topk_cuda.topk_rows.launches == before + 1
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+def _gene_space(res):
+    return (res.corrected.double() @ res.rotation.double().T).cpu()
+
+
+def test_cluster_mnn_card_matches_cpu(card):
+    from batchelor_torch import cluster_mnn
+
+    rng = np.random.default_rng(21)
+    means = rng.normal(size=(4, 80)) * 2
+    labels = [rng.integers(0, 4, 700) for _ in range(3)]
+    mats = [means[c] + rng.normal(size=(700, 80)) + rng.normal(size=(1, 80)) * 0.5 * i
+            for i, c in enumerate(labels)]
+    kw = dict(clusters=labels, restrict=[None, np.arange(0, 700, 2), None])
+    gpu = cluster_mnn(mats, **kw)
+    cpu = cluster_mnn(mats, device="cpu", **kw)
+    assert gpu.corrected.device.type == "cuda"
+    for a, b in zip(gpu.centroid_result.merge_info, cpu.centroid_result.merge_info):
+        assert set(map(tuple, a.pairs.tolist())) == set(map(tuple, b.pairs.tolist()))
+    for key in ("cluster", "batch", "meta"):
+        assert np.array_equal(gpu.cluster_meta[key], cpu.cluster_meta[key])
+    want = _gene_space(cpu)
+    assert float((_gene_space(gpu) - want).abs().max()) <= 1e-8 * float(want.abs().max())
+
+
+def test_quick_correct_card_matches_cpu(card):
+    from batchelor_torch import FastMNNParams, quick_correct
+
+    rng = np.random.default_rng(22)
+    lam = np.exp(rng.normal(size=(3, 300)))
+    counts = [rng.poisson(lam[rng.integers(0, 3, n)] * s).astype(np.float64)
+              for n, s in ((500, 1.0), (600, 1.7))]
+    kw = dict(hvg_n=100, params=FastMNNParams(d=10))
+    gpu = quick_correct(counts, **kw)
+    cpu = quick_correct(counts, device="cpu", **kw)
+    assert np.array_equal(gpu.hvgs, cpu.hvgs)
+    assert np.allclose(gpu.dec.bio, cpu.dec.bio, atol=1e-10, rtol=0)
+    for a, b in zip(gpu.corrected.merge_info, cpu.corrected.merge_info):
+        assert np.array_equal(a.pairs, b.pairs)
+    want = _gene_space(cpu.corrected)
+    assert float((_gene_space(gpu.corrected) - want).abs().max()) <= 1e-8 * float(want.abs().max())
+
+
+def test_batch_correct_regress_card_matches_cpu(card):
+    from batchelor_torch import RegressParams, batch_correct
+
+    rng = np.random.default_rng(23)
+    mats = [rng.normal(size=(400, 60)) + i for i in range(3)]
+    kw = dict(params=RegressParams(d=5), restrict=[None, np.arange(100), None])
+    gpu = batch_correct(mats, **kw)
+    cpu = batch_correct(mats, device="cpu", **kw)
+    assert gpu.corrected.device.type == "cuda"
+    assert torch.allclose(gpu.corrected.cpu(), cpu.corrected, atol=1e-10, rtol=0)
+    sign = torch.sign((gpu.corrected_pcs.cpu() * cpu.corrected_pcs).sum(0))
+    assert torch.allclose(gpu.corrected_pcs.cpu() * sign, cpu.corrected_pcs, atol=1e-8, rtol=0)

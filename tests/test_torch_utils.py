@@ -32,7 +32,9 @@ def test_no_jax_in_the_port():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'batchelor_tpu'))]\n"
         "assert not bad, bad\n"
-        "new = ['ops.cosine_norm', 'ops.pca', 'ops.lowrank', 'ops.rescore_cuda', 'ops.pass1_cuda']\n"
+        "new = ['ops.cosine_norm', 'ops.pca', 'ops.lowrank', 'ops.rescore_cuda', 'ops.pass1_cuda',\n"
+        "       'ops.residual', 'ops.normalization', 'ops.stats', 'correct.diagnostics',\n"
+        "       'correct.linear', 'correct.cluster_mnn', 'correct.dispatch', 'correct.experiments']\n"
         "assert all('batchelor_torch.' + m in sys.modules for m in new)\n"
         "print('ok', len([m for m in sys.modules if m.startswith('batchelor_torch')]))\n"
     )
@@ -44,16 +46,35 @@ def test_no_jax_in_the_port():
 
 
 def test_entry_points_default_to_cuda(monkeypatch, rng):
+    import batchelor_torch as bt
     from batchelor_torch import find_mutual_nn, query_knn, reduced_mnn
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     b = [rng.normal(size=(20, 3)), rng.normal(size=(20, 3))]
+    counts = [rng.poisson(3.0, size=(20, 8)).astype(float) for _ in range(2)]
+    pairs = [np.array([[0, 20], [1, 21], [2, 22]])]
+    labels, batch = np.arange(40) % 3, np.repeat([0, 1], 20)
+    ds = [bt.SingleCellDataset(assays={"logcounts": m}) for m in b]
     for call in (lambda: reduced_mnn(b), lambda: query_knn(b[0], b[1], 2),
                  lambda: find_mutual_nn(b[0], b[1], 2, 2),
-                 lambda: convert.from_numpy(b[0]), lambda: device.resolve_device("cuda")):
+                 lambda: convert.from_numpy(b[0]), lambda: device.resolve_device("cuda"),
+                 lambda: bt.cluster_mnn(b, clusters=[labels[:20], labels[20:]]),
+                 lambda: bt.kmeans_clusters(b[0], 2),
+                 lambda: bt.rescale_batches(b), lambda: bt.regress_batches(b),
+                 lambda: bt.no_correct(b), lambda: bt.multi_batch_norm(counts),
+                 lambda: bt.model_gene_var(b[0]),
+                 lambda: bt.mnn_delta_variance(b, pairs),
+                 lambda: bt.mnn_delta_variance_blocked(b, pairs),
+                 lambda: bt.cluster_abundance_test(labels, batch),
+                 lambda: bt.cluster_abundance_var(labels, batch),
+                 lambda: bt.batch_correct(b, params=bt.NoCorrectParams()),
+                 lambda: bt.correct_experiments(ds, params=bt.NoCorrectParams()),
+                 lambda: bt.quick_correct(counts, hvg_n=4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert device.resolve_device("cpu") == torch.device("cpu")
+    res = bt.quick_correct(counts, hvg_n=4, params=bt.NoCorrectParams(), device="cpu")
+    assert res.corrected.corrected.device.type == "cpu"
 
 
 def test_gene_space_entry_points_default_to_cuda(monkeypatch, rng):
@@ -133,6 +154,11 @@ def test_batching_helpers_match_jax(rng):
         tb.check_batch_consistency([np.zeros((2, 3)), np.zeros((2, 4))])
     with pytest.raises(ValueError):
         tb.check_restrictions(batches, [[], None])
+    mats = [rng.normal(size=(3, 4)), rng.normal(size=(2, 3))]
+    names = [["a", "b", "c", "d"], ["d", "b", "a"]]
+    for kw in ({}, {"subset": ["d", "a"]}, {"subset": ["d"], "keep_all": True}):
+        (jm, jn), (tm, tn) = jb.intersect_rows(mats, names, **kw), tb.intersect_rows(mats, names, **kw)
+        assert jn == tn and all(np.array_equal(a, b) for a, b in zip(jm, tm))
 
 
 @pytest.mark.parametrize("order", [None, [2, 0, 1, 3], [[0, 1], [2, 3]], [[0, [1, 2]], 3],
