@@ -17,12 +17,18 @@ adjustment), clusterMNN (``cluster_mnn``), the linear engines
 the variance model and HVG selection, the diagnostics, the typed dispatch
 API (``batch_correct`` and its ``*Params``) and the pipelines
 (``quick_correct``, ``correct_experiments``, ``apply_multi``), and what
-they run: kNN search, MNN detection and the correction math. The CSR
-(out-of-core) inputs and the multi-device layer are not ported yet.
+they run: kNN search, MNN detection and the correction math. Out of core:
+CSR stores on disk (``CSRCells``, ``dense_blocks``,
+``device_dense_blocks``) through the host C++ runtime
+(``native/libbatchelor.cpp``, built with g++ at first use), the streamed PCA
+(``multi_batch_pca_csr``), ``quick_correct_csr``, ``cluster_mnn_csr``,
+``mnn_correct_csr``, ``rescale_batches_csr``, ``regress_batches_csr``, and
+the command line (``python -m batchelor_torch``). The multi-device layer is
+not ported yet.
 """
 from .convert import from_numpy, pca_to_numpy, result_to_numpy
 from .correct.classic_mnn import mnn_correct
-from .correct.cluster_mnn import ClusterMNNResult, cluster_mnn, kmeans_clusters
+from .correct.cluster_mnn import ClusterMNNResult, cluster_mnn, cluster_mnn_csr, kmeans_clusters
 from .correct.diagnostics import (
     MnnDeltaVarianceResult,
     cluster_abundance_test,
@@ -50,9 +56,17 @@ from .correct.experiments import (
 )
 from .correct.fast_mnn import MergeStepInfo, MNNResult, fast_mnn, reduced_mnn
 from .correct.fused import FusedMergeOutput, fused_merge_step
+from .correct.outofcore import (
+    CSRResidualOp,
+    mnn_correct_csr,
+    quick_correct_csr,
+    regress_batches_csr,
+    rescale_batches_csr,
+)
 from .correct.linear import LinearCorrectionResult, no_correct, regress_batches, rescale_batches
 from .device import resolve_device
 from .io.checkpoint import MergeCheckpointer, load_pca_stage, save_pca_stage
+from .io.csr import CSRCells, dense_blocks, device_dense_blocks
 from .ops.correction import average_correction, center_along_batch_vector, tricube_average
 from .ops.cosine_norm import apply_cosine_norm, cosine_norm
 from .ops.knn import KNNResult, query_knn
@@ -60,6 +74,7 @@ from .ops.lowrank import LowRankOp
 from .ops.mutual_nn import MNNPairs, choose_k, find_mutual_nn, restricted_mnn
 from .ops.normalization import MultiBatchNormResult, multi_batch_norm
 from .ops.pca import MultiBatchPCAResult, multi_batch_pca
+from .ops.pca_outofcore import multi_batch_pca_csr
 from .ops.residual import ResidualOp
 from .ops.stats import GeneVarResult, combine_var, get_top_hvgs, model_gene_var
 from .utils.batching import (
@@ -86,10 +101,15 @@ __all__ = [
     "cluster_abundance_test",
     "cluster_abundance_var",
     "cluster_mnn",
+    "cluster_mnn_csr",
     "ClusterMNNResult",
     "combine_var",
     "correct_experiments",
     "cosine_norm",
+    "CSRCells",
+    "CSRResidualOp",
+    "dense_blocks",
+    "device_dense_blocks",
     "divide_into_batches",
     "fast_mnn",
     "FastMNNParams",
@@ -111,6 +131,7 @@ __all__ = [
     "MergeStepInfo",
     "MetricsRecorder",
     "mnn_correct",
+    "mnn_correct_csr",
     "mnn_delta_variance",
     "mnn_delta_variance_blocked",
     "MnnDeltaVarianceResult",
@@ -119,6 +140,7 @@ __all__ = [
     "model_gene_var",
     "multi_batch_norm",
     "multi_batch_pca",
+    "multi_batch_pca_csr",
     "MultiBatchNormResult",
     "MultiBatchPCAResult",
     "no_correct",
@@ -126,13 +148,16 @@ __all__ = [
     "pca_to_numpy",
     "query_knn",
     "quick_correct",
+    "quick_correct_csr",
     "QuickCorrectResult",
     "reduced_mnn",
     "register_correction",
     "regress_batches",
+    "regress_batches_csr",
     "RegressParams",
     "reindex_pairings",
     "rescale_batches",
+    "rescale_batches_csr",
     "RescaleParams",
     "ResidualOp",
     "resolve_device",

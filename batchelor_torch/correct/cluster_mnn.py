@@ -1,13 +1,15 @@
 """clusterMNN: cluster-level MNN correction with per-cell propagation.
 
-Counterpart of the dense path of ``batchelor_tpu/correct/cluster_mnn.py``
-(reference clusterMNN, R/clusterMNN.R:101-312): per-batch cluster
+Counterpart of ``batchelor_tpu/correct/cluster_mnn.py`` (reference
+clusterMNN, R/clusterMNN.R:101-312), dense and out-of-core: per-batch cluster
 centroids -> full-rank multi-batch PCA of the centroids -> reducedMNN with
 k=1 on the centroids -> per-cell propagation by a variable-bandwidth
 Gaussian kernel -> meta-clusters as connected components of the centroid
 MNN-pair graph. The cells' nearest-centroid search is the port's
 ``query_knn`` (kernel K2 on rows of k plus a few centroids); every distance
-product runs in full fp32.
+product runs in full fp32. ``cluster_mnn_csr`` takes CSR stores: its
+centroids are host means over the nonzeros, and the cells' projection and
+propagation stream through the device block by block.
 """
 from __future__ import annotations
 
@@ -21,11 +23,13 @@ from ..device import DeviceLike, as_tensor, full_fp32_matmul, resolve_device
 from ..ops.cosine_norm import apply_cosine_norm, cosine_norm, subset_columns
 from ..ops.knn import query_knn
 from ..ops.lowrank import LowRankOp
+from ..io.csr import CSRCells, device_dense_blocks, row_l2_norms
 from ..ops.pca import multi_batch_pca
+from ..ops.pca_outofcore import multi_batch_pca_csr
 from ..utils.batching import check_batch_consistency, check_restrictions, divide_into_batches
 from .fast_mnn import MNNResult, reduced_mnn
 
-__all__ = ["cluster_mnn", "kmeans_clusters", "ClusterMNNResult"]
+__all__ = ["cluster_mnn", "cluster_mnn_csr", "kmeans_clusters", "ClusterMNNResult"]
 
 
 def _sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -297,6 +301,205 @@ def cluster_mnn(
         labels = labels[reo]
         cluster = cluster[reo]
 
+    return ClusterMNNResult(
+        corrected=corrected,
+        batch=labels,
+        cluster=cluster,
+        cluster_meta=cluster_meta,
+        centroid_result=merge_out,
+        rotation=pca.rotation,
+        centers=pca.centers,
+    )
+
+
+# --------------------------------------------------------------- out of core
+
+
+def _csr_cluster_means(csr: CSRCells, assign: np.ndarray, n_clusters: int,
+                       row_scale: np.ndarray, nnz_chunk: int = 1 << 26) -> np.ndarray:
+    """(n_clusters, G) float32 means of the scaled rows of each cluster,
+    one bincount pass over the nonzeros in chunks, on the host. ``assign``
+    is -1 for rows left out (not restricted). The out-of-core
+    sumCountsAcrossCells centroids (R/clusterMNN.R:228-242)."""
+    g = csr.n_genes
+    counts = np.diff(csr.indptr)
+    assign_nnz = np.repeat(assign, counts)
+    scale_nnz = np.repeat(row_scale, counts)
+    sums = np.zeros(n_clusters * g, np.float64)
+    nnz = csr.data.shape[0]
+    for lo in range(0, nnz, nnz_chunk):
+        hi = min(lo + nnz_chunk, nnz)
+        a = assign_nnz[lo:hi]
+        keep = a >= 0
+        flat = a[keep].astype(np.int64) * g + csr.indices[lo:hi][keep]
+        w = np.asarray(csr.data[lo:hi][keep], np.float64) * scale_nnz[lo:hi][keep]
+        sums += np.bincount(flat, weights=w, minlength=n_clusters * g)
+    ncells = np.bincount(assign[assign >= 0], minlength=n_clusters).astype(np.float64)
+    return (sums.reshape(n_clusters, g) / np.maximum(ncells, 1.0)[:, None]).astype(np.float32)
+
+
+def _proj_block(block, l2, rotation, adj):
+    """Cosine-normalize rows as apply_cosine_norm does (the same fp32
+    division) and project them onto the centroid rotation."""
+    safe = l2.to(block.dtype).clamp(min=1e-8)
+    with full_fp32_matmul():
+        return (block / safe[:, None]) @ rotation - adj[None, :]
+
+
+def _min_cent_dist(proj, cent):
+    """Each row's distance to its nearest centroid."""
+    return _sq_dists(proj, cent).amin(1).clamp(min=0).sqrt()
+
+
+def _propagate_block(proj, cent, delta, sigma):
+    """Softmax-weighted centroid deltas (the reference's
+    .smooth_gaussian_from_centroids, R/clusterMNN.R:289-312)."""
+    w = torch.softmax(-_sq_dists(proj, cent) / (sigma * sigma), dim=1)
+    with full_fp32_matmul():
+        return proj + w @ delta
+
+
+def cluster_mnn_csr(
+    batches: Sequence,
+    *,
+    clusters,
+    restrict=None,
+    cos_norm: bool = True,
+    merge_order=None,
+    auto_merge: bool = False,
+    min_batch_skip: Optional[float] = 0.0,
+    subset_row: Optional[np.ndarray] = None,
+    correct_all: bool = False,
+    batch_names: Optional[Sequence[str]] = None,
+    block_rows: int = 16384,
+    device: DeviceLike = None,
+) -> ClusterMNNResult:
+    """Out-of-core clusterMNN over CSRCells stores.
+
+    Matches :func:`cluster_mnn` on the densified inputs, but no expression
+    matrix densifies beyond one (block_rows, G_sub) block: the centroids
+    are host means over the nonzeros (no transfer of the expression), and
+    the cells' projection and Gaussian propagation stream subset-gene
+    blocks through ``device`` (default: the CUDA device; raises without one
+    unless ``device="cpu"``) as nonzeros. The reference runs this on
+    file-backed matrices through block-processed cosineNorm
+    (R/cosineNorm.R:59-61) and streamed centroids (R/clusterMNN.R:228-242).
+
+    ``clusters``: a list of per-batch label vectors, or an int K to cluster
+    each batch with k-means on its top-50 streamed PCs.
+    """
+    dev = resolve_device(device)
+    if not isinstance(batches, (list, tuple)) or not all(
+        isinstance(b, CSRCells) for b in batches
+    ):
+        raise ValueError("cluster_mnn_csr expects a list of CSRCells stores")
+    nb = len(batches)
+    if nb < 2:
+        raise ValueError("at least two batches must be specified")
+    g = batches[0].n_genes
+    if any(b.n_genes != g for b in batches):
+        raise ValueError("all batches must have the same genes")
+    if restrict is None:
+        restrict = [None] * nb
+    sub = None if subset_row is None else np.asarray(subset_row)
+
+    if isinstance(clusters, int):
+        kk = clusters
+        clusters = []
+        for b in batches:
+            s = b if sub is None else b.select_genes(sub)
+            pcs = multi_batch_pca_csr([s], d=min(50, s.n_cells - 1, s.n_genes),
+                                      block_rows=block_rows, device=dev).components[0]
+            clusters.append(kmeans_clusters(pcs, kk, device=dev))
+    if len(clusters) != nb:
+        raise ValueError("'clusters' should have one entry per batch")
+
+    # cosine-norm scales per cell: l2 over the subset genes, applied to all
+    # (as the dense path, reference R/clusterMNN.R:138-141)
+    if cos_norm:
+        l2s = [row_l2_norms(b, sub) for b in batches]
+    else:
+        l2s = [np.full(b.n_cells, 1.0) for b in batches]
+    scales = [1.0 / np.maximum(l2, 1e-8) for l2 in l2s]
+
+    # centroids over the restricted cells
+    centers, levels = [], []
+    for i, (b, cl) in enumerate(zip(batches, clusters)):
+        cl = np.asarray(cl)
+        keep = np.ones(b.n_cells, bool)
+        if restrict[i] is not None:
+            keep[:] = False
+            keep[np.asarray(restrict[i])] = True
+        lv = sorted(set(cl[keep].tolist()))
+        assign = np.full(b.n_cells, -1, dtype=np.int64)
+        assign[keep] = np.searchsorted(np.asarray(lv), cl[keep])
+        centers.append(as_tensor(_csr_cluster_means(b, assign, len(lv), scales[i]), dev))
+        levels.append(lv)
+
+    total_centroids = sum(c.shape[0] for c in centers)
+    pca = multi_batch_pca(
+        centers,
+        d=total_centroids - 1,
+        subset_row=sub,
+        get_all_genes=correct_all and sub is not None,
+        method="gram",
+        batch_names=batch_names,
+        device=dev,
+    )
+    merge_out = reduced_mnn(
+        pca.components,
+        k=1,
+        merge_order=merge_order,
+        auto_merge=auto_merge,
+        min_batch_skip=min_batch_skip,
+        batch_names=batch_names,
+        device=dev,
+    )
+
+    rotation, centers_vec = pca.rotation, pca.centers
+    if correct_all and sub is not None:
+        s = as_tensor(sub, dev, torch.long)
+        rotation, centers_vec = rotation[s], centers_vec[s]
+    with full_fp32_matmul():
+        adj = centers_vec @ rotation
+
+    corrected_blocks = []
+    last = 0
+    for i in range(nb):
+        store = batches[i] if sub is None else batches[i].select_genes(sub)
+        cent = pca.components[i]
+        ncent = cent.shape[0]
+        delta = merge_out.corrected[last:last + ncent] - cent
+        last += ncent
+
+        # the projection, streamed ((N_b, d) stays on the device)
+        l2 = as_tensor(l2s[i].astype(np.float32), dev)
+        projs, row0 = [], 0
+        for block, n_valid in device_dense_blocks(store, block_rows, pad=False, device=dev):
+            projs.append(_proj_block(block, l2[row0:row0 + n_valid], rotation, adj))
+            row0 += n_valid
+        proj = torch.cat(projs, 0)
+
+        # sigma: the median distance of the restricted cells to their
+        # nearest centroid
+        q = proj if restrict[i] is None else proj[as_tensor(restrict[i], dev, torch.long)]
+        sigma = _median(_min_cent_dist(q, cent))
+        corrected_blocks.append(_propagate_block(proj, cent, delta, sigma))
+
+    corrected = torch.cat(corrected_blocks, 0)
+    cluster = np.concatenate([np.asarray(c) for c in clusters])
+    origin = np.repeat(np.arange(nb), [b.n_cells for b in batches])
+    labels = np.asarray(batch_names)[origin] if batch_names is not None else origin
+
+    all_pairs = (np.concatenate([info.pairs for info in merge_out.merge_info])
+                 if merge_out.merge_info else np.empty((0, 2), dtype=np.int64))
+    centroid_batches = np.repeat(np.arange(nb), [len(lv) for lv in levels])
+    cluster_meta = {
+        "cluster": np.concatenate([np.asarray(lv) for lv in levels]),
+        "batch": (np.asarray(batch_names)[centroid_batches]
+                  if batch_names is not None else centroid_batches),
+        "meta": _union_find(total_centroids, all_pairs),
+    }
     return ClusterMNNResult(
         corrected=corrected,
         batch=labels,

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, as_tensor, resolve_device
+from ..io.csr import CSRCells, row_l2_norms
 from ..ops.cosine_norm import apply_cosine_norm, cosine_norm
 
 __all__ = [
@@ -262,19 +263,20 @@ def mnn_delta_variance_blocked(
 ) -> MnnDeltaVarianceResult:
     """Block-processed mnn_delta_variance for host-resident batches.
 
-    ``batches``: per-batch host arrays (cells in rows). Nothing moves to
-    ``device`` (default: the CUDA device; raises without one unless
-    ``device="cpu"``) beyond two (chunk_pairs, G) float32 blocks of the
-    pairs' rows at a time, so the full-gene-space diagnostic runs at atlas
-    scale (the reference streams the same computation over row blocks via
-    blockApply, R/mnnDeltaVariance.R:145). Matches
-    :func:`mnn_delta_variance` on dense inputs: per-step variances are
-    accumulated on the device as fp64 moment sums over the pair chunks.
+    ``batches``: per-batch host arrays (cells in rows) or CSRCells stores.
+    Nothing moves to ``device`` (default: the CUDA device; raises without
+    one unless ``device="cpu"``) beyond two (chunk_pairs, G) float32 blocks
+    of the pairs' rows at a time, and no store densifies beyond those rows,
+    so the full-gene-space diagnostic runs at atlas scale (the reference
+    streams the same computation over row blocks via blockApply,
+    R/mnnDeltaVariance.R:145). Matches :func:`mnn_delta_variance` on dense
+    inputs: per-step variances are accumulated on the device as fp64 moment
+    sums over the pair chunks.
     """
     dev = resolve_device(device)
-    if not all(isinstance(b, (np.ndarray, torch.Tensor)) for b in batches):
-        raise TypeError("mnn_delta_variance_blocked takes dense per-batch arrays "
-                        "(CSR stores are not ported yet)")
+    if not all(isinstance(b, (np.ndarray, torch.Tensor, CSRCells)) for b in batches):
+        raise TypeError("mnn_delta_variance_blocked takes dense per-batch arrays or "
+                        "CSRCells stores")
     mats = [b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else b for b in batches]
     offsets = np.concatenate([[0], np.cumsum([b.shape[0] for b in mats])])
     g = mats[0].shape[1]
@@ -286,6 +288,9 @@ def mnn_delta_variance_blocked(
         sub = None if subset_row is None else np.asarray(subset_row)
         l2s = []
         for b in mats:
+            if isinstance(b, CSRCells):
+                l2s.append(row_l2_norms(b, sub))
+                continue
             x = np.asarray(b, dtype=np.float64)
             if sub is not None:
                 x = x[:, sub]
@@ -310,7 +315,10 @@ def mnn_delta_variance_blocked(
         which = np.searchsorted(offsets, rows, side="right") - 1
         for bi in np.unique(which):
             sel = np.nonzero(which == bi)[0]
-            dense = np.asarray(mats[bi])[rows[sel] - offsets[bi]]
+            local = rows[sel] - offsets[bi]
+            b = mats[bi]
+            dense = (b.select_cells(local).to_dense() if isinstance(b, CSRCells)
+                     else np.asarray(b)[local])
             if keep is not None:
                 dense = dense[:, keep]
             out[sel] = dense

@@ -95,7 +95,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      NoCorrectParams on phase 12's 2 x 100,000 x 2,000 HVG log-expression,
      mnn_delta_variance over its pairs, cluster_abundance_test and _var on
      phase 13's 800,000 labels, each timed; then each card against CPU in
-     fp64 at a small size (1e-10; the abundance statistics 1e-12).
+     fp64 at a small size (1e-10; the abundance statistics 1e-12);
+ 15. out of core: raw counts 2 x 100,000 cells x 5,000 genes drawn on the
+     card with phase 12's generator, every log-mean lowered by 3.25 (5-10%
+     nonzero, droplet density), converted on the card to host CSRCells;
+     quick_correct_csr (hvg_n = 2,000, d = 50, k = 20, "auto", min_mean =
+     0.1 for UMI counts) first and second call with its quickcsr/* spans,
+     K1, K2 and K3 on the launch counters, one call profiled, beside the
+     dense quick_correct on the same counts (HVG overlap, pair Jaccard,
+     and the pair Jaccard with an exact PCA of the HVG stores in place of
+     the randomized one that quick_correct_csr takes above 1,024 genes);
+     multi_batch_pca_csr with transfer "sparse" and "dense" bit-identical
+     and timed in turns on the HVG stores and on 100,000 x 2,000 stores at
+     25%, 50%, 75% and 100% density, with each mode's host-to-device bytes;
+     mnn_correct_csr (2 x 10,000 x 2,000, subset_row, then correct_all on
+     the host), cluster_mnn_csr with the simulation's labels,
+     rescale_batches_csr, regress_batches_csr and mnn_delta_variance_blocked
+     on CSR input, each timed with its launches; the card against the CPU at
+     2 x 2,000 x 500 (~10%): device_dense_blocks bit for bit, the same HVGs,
+     identical pairs and corrected within 1e-4 x max in gene space on >=
+     99.9% of rows (a tricube neighbour at a near-tie moves its cell, as in
+     phase 9; printed only if a near-tied pair differs), the same
+     cluster_meta; and
+     python -m batchelor_torch import-dense, info and quick-correct in a
+     subprocess, its corrected.npy within 1e-6 x max|corrected| of an
+     in-process call with the same HVGs and pair counts.
 It prints each phase's seconds, the build time, one {"kernels": [...]} line with each kernel's
 launches on each path, times (median of CUDA-event timings), bound and
 library yardstick, one line for each path's seconds, the card's name and
@@ -790,7 +814,7 @@ def profiled(torch, fn):
         # timeline, over the kernels they enclose: counting them would count
         # those kernels twice
         if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or evt.name.startswith(("fastmnn/", "quickcorrect/"))):
+                or evt.name.startswith(("fastmnn/", "quickcorrect/", "quickcsr/"))):
             continue
         name = evt.name.replace("(anonymous namespace)::", "").split("(")[0][:60]
         runs, ms = by_name.get(name, (0, 0.0))
@@ -999,14 +1023,16 @@ CLUSTER_N = 100_000            # cluster_mnn's cells a batch, 8 batches (phase 1
 CLUSTER_GENES = 500            # bench.py config 4: min(N_GENES, 500)
 
 
-def card_counts(torch, gen, means, n, shift):
+def card_counts(torch, gen, means, n, shift, labels=False):
     """Raw counts drawn on the card: Poisson of exp(type mean + 0.5 noise
-    (+ the batch's shift)), the simulation's log-means, from ``gen``."""
+    (+ the batch's shift)), the simulation's log-means, from ``gen``; with
+    ``labels`` also each cell's type."""
     assign = torch.randint(0, means.shape[0], (n,), device="cuda", generator=gen)
     logmean = means[assign] + 0.5 * torch.randn(n, means.shape[1], device="cuda", generator=gen)
     if shift is not None:
         logmean += shift
-    return torch.poisson(logmean.exp_(), generator=gen)
+    counts = torch.poisson(logmean.exp_(), generator=gen)
+    return (counts, assign.cpu().numpy()) if labels else counts
 
 
 def quick_counts(torch, n, genes):
@@ -1255,6 +1281,310 @@ def phase_engines(torch, np, bt, qc, counts, labels):
     return {"path": f"engines and diagnostics on 2x{QC_N}x{HVG_N}", **line}
 
 
+OOC_N = 100_000                # quick_correct_csr's cells a batch (phase 15)
+OOC_LOG_SHIFT = -3.25          # lowers phase 12's log-means to 5-10% nonzero counts
+# multiBatchNorm's gene filter for UMI counts: at droplet density no gene
+# averages the default min_mean = 1 count (scran's documentation advises 0.1)
+UMI_MIN_MEAN = 0.1
+CROSSOVER_DENSITIES = (0.25, 0.5, 0.75, 1.0)
+
+
+def droplet_counts(torch, n, genes, log_shift=OOC_LOG_SHIFT):
+    """Two batches of raw counts on the card at droplet density: phase 12's
+    generator with every log-mean lowered by ``-log_shift``, the second batch
+    shifted; returns (counts, type labels)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    means = torch.randn(4, genes, device="cuda", generator=gen)
+    shift = 0.8 * torch.randn(1, genes, device="cuda", generator=gen)
+    out = [card_counts(torch, gen, means, n, log_shift, labels=True),
+           card_counts(torch, gen, means, n, shift + log_shift, labels=True)]
+    return [c for c, _ in out], [lab for _, lab in out]
+
+
+def card_to_csr(torch, np, bt, x, rows=16_384):
+    """A dense card matrix as a host CSRCells (fp32 data, int32 indices,
+    int64 indptr), converted on the card block by block."""
+    data, indices, counts = [], [], []
+    for r0 in range(0, x.shape[0], rows):
+        blk = x[r0:r0 + rows]
+        nz = blk != 0
+        counts.append(nz.sum(1).cpu())
+        data.append(blk[nz].float().cpu())
+        indices.append(nz.nonzero()[:, 1].int().cpu())
+    indptr = np.concatenate([[0], np.cumsum(torch.cat(counts).numpy())]).astype(np.int64)
+    return bt.CSRCells(data=torch.cat(data).numpy(), indices=torch.cat(indices).numpy(),
+                       indptr=indptr, n_genes=x.shape[1])
+
+
+def density(csr):
+    return csr.data.shape[0] / (csr.n_cells * csr.n_genes)
+
+
+def h2d_bytes(csr, block_rows, mode):
+    """Host-to-device bytes of one pass over ``csr``: 4 a slot for "dense",
+    8 a nonzero plus 8 a row offset (n + 1 a block) for "sparse"."""
+    if mode == "dense":
+        return 4 * csr.n_cells * csr.n_genes
+    n_blocks = -(-csr.n_cells // block_rows)
+    return 8 * csr.data.shape[0] + 8 * (csr.n_cells + n_blocks)
+
+
+def sync_time(torch, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def transfer_modes(torch, np, bt, stores, label):
+    """multi_batch_pca_csr with transfer="sparse" and "dense" on ``stores``:
+    bit-identical results, each mode timed in turns (sparse, dense, dense,
+    sparse), and the host-to-device bytes of each; returns its line."""
+    kw = dict(d=DIMS, block_rows=8192)
+    res, secs = {}, {"sparse": [], "dense": []}
+    for mode in ("sparse", "dense", "dense", "sparse"):
+        res[mode], s = sync_time(torch, lambda: bt.multi_batch_pca_csr(stores, transfer=mode,
+                                                                       **kw))
+        secs[mode].append(s)
+    sp, dn = res["sparse"], res["dense"]
+    same = (torch.equal(sp.centers, dn.centers) and torch.equal(sp.rotation, dn.rotation)
+            and all(np.array_equal(a, b) for a, b in zip(sp.components, dn.components)))
+    dens = sum(s.data.shape[0] for s in stores) / sum(s.n_cells * s.n_genes for s in stores)
+    check(same, f"{label}: transfer 'sparse' and 'dense' bit-identical (density {dens:.4f})")
+    line = {"density": dens, "shape": [len(stores), stores[0].n_cells, stores[0].n_genes]}
+    for mode in ("sparse", "dense"):
+        # two passes over every store: the Gram, then the projection
+        line[mode] = {"seconds": secs[mode],
+                      "h2d_bytes": 2 * sum(h2d_bytes(s, kw["block_rows"], mode) for s in stores)}
+    print(f"  {label}: density {dens:.4f}; sparse {secs['sparse']} s "
+          f"({line['sparse']['h2d_bytes'] / 1e9:.3f} GB to the card), dense {secs['dense']} s "
+          f"({line['dense']['h2d_bytes'] / 1e9:.3f} GB)", flush=True)
+    return line
+
+
+def random_store(torch, np, bt, n, genes, p):
+    """A (n, genes) store of uniform values at density ``p``, drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.rand(n, genes, device="cuda", generator=gen)
+    x = torch.where(torch.rand(n, genes, device="cuda", generator=gen) < p, x + 0.5, 0.0)
+    return card_to_csr(torch, np, bt, x)
+
+
+def phase_outofcore(torch, np, bt, path_kernels, root):
+    """The out-of-core path on 2 x 100,000 x 5,000 droplet-density stores;
+    returns (its line, launches by path)."""
+    from batchelor_torch.correct import outofcore
+
+    print(f"phase 15: out of core, CSR stores 2 x {OOC_N:,} x {QC_GENES:,} genes of raw counts "
+          f"at droplet density: quick_correct_csr (hvg_n={HVG_N}, d={DIMS}, k={K}, 'auto'), "
+          "the transfer modes, the *_csr engines, card against CPU, the CLI", flush=True)
+    t0 = time.perf_counter()
+    counts, labels = droplet_counts(torch, OOC_N, QC_GENES)
+    stores = [card_to_csr(torch, np, bt, c) for c in counts]
+    inputs_s = time.perf_counter() - t0
+    dens = [density(s) for s in stores]
+    host_gb = sum(s.data.nbytes + s.indices.nbytes + s.indptr.nbytes for s in stores) / 1e9
+    check(all(0.05 <= d <= 0.10 for d in dens),
+          f"stores at droplet density: {[round(d, 4) for d in dens]} nonzero, "
+          f"{host_gb:.3f} GB of CSR on the host")
+    line = {"path": f"quick_correct_csr 2x{OOC_N}x{QC_GENES} hvg_n={HVG_N} d={DIMS} auto",
+            "inputs_s": inputs_s, "density": dens, "host_csr_gb": host_gb}
+    launches = {}
+
+    qkw = dict(hvg_n=HVG_N, d=DIMS, k=K, knn_method="auto", min_mean=UMI_MIN_MEAN)
+    runs = []
+    for run in ("first", "second"):
+        rec = bt.MetricsRecorder()
+        if run == "first":
+            zero_counts(path_kernels)
+        with rec.activate():
+            qc, s = sync_time(torch, lambda: bt.quick_correct_csr(stores, **qkw))
+        if run == "first":
+            launches["quick_correct_csr"] = read_counts(path_kernels)
+            check(all(v > 0 for v in launches["quick_correct_csr"].values()),
+                  f"K1, K2 and K3 ran: {launches['quick_correct_csr']}")
+        spans = {k: sum(v) for k, v in rec.spans.items() if k.startswith("quickcsr/")}
+        runs.append({"seconds": s, "spans": spans})
+        print(f"  quick_correct_csr {run} run: {s:.3f} s {spans}", flush=True)
+    line["runs"] = runs
+    line["profiled"] = profiled(torch, lambda: bt.quick_correct_csr(stores, **qkw))
+    print_profile(line["profiled"], "quick_correct_csr")
+    out = qc.corrected
+    n_hvg = qc.hvgs.shape[0]
+    # get_top_hvgs keeps only genes with a positive biological variance
+    check(len(set(qc.hvgs.tolist())) == n_hvg <= HVG_N,
+          f"{n_hvg} distinct HVGs (at most {HVG_N})")
+    check(tuple(out.corrected.shape) == (2 * OOC_N, DIMS)
+          and bool(torch.isfinite(out.corrected).all())
+          and tuple(out.rotation.shape) == (n_hvg, DIMS),
+          f"corrected finite ({2 * OOC_N}, {DIMS}), rotation ({n_hvg}, {DIMS}), "
+          f"{out.merge_info[0].pairs.shape[0]} pairs")
+    line["hvgs"] = n_hvg
+
+    # the dense quick_correct on the same counts with the matching options
+    params = bt.FastMNNParams(d=DIMS, k=K, knn_method="auto")
+    dense_s = []
+    for _ in range(2):
+        dense, s = sync_time(torch, lambda: bt.quick_correct(
+            counts, hvg_n=HVG_N, params=params, correct_all=False, min_mean=UMI_MIN_MEAN))
+        dense_s.append(s)
+    overlap = np.intersect1d(dense.hvgs, qc.hvgs).size / max(dense.hvgs.size, n_hvg)
+    a, b = pair_set(out.merge_info[0], 2 * OOC_N), pair_set(dense.corrected.merge_info[0],
+                                                            2 * OOC_N)
+    jac = np.intersect1d(a, b).size / np.union1d(a, b).size
+    line["dense_quick_correct"] = {"seconds": dense_s, "hvg_overlap": overlap,
+                                   "pair_jaccard": jac, "pairs": int(b.size)}
+    print(f"  dense quick_correct on the same counts: {dense_s} s against "
+          f"{[r['seconds'] for r in runs]} s out of core; HVG overlap {overlap:.4f}, "
+          f"pair Jaccard {jac:.5f}", flush=True)
+    del counts, dense
+
+    # the HVG stores as quick_correct_csr transforms them
+    sfs = [(lib / lib.mean()).astype(np.float32) for lib in (s.row_sums() for s in stores)]
+    avgs = [outofcore._stream_stats(s, sf, 2.0)[0] for s, sf in zip(stores, sfs)]
+    sfs = [np.asarray(r, np.float32) for r in outofcore.rescale_size_factors(
+        avgs, sfs, min_mean=UMI_MIN_MEAN)]
+    hvg_stores = [outofcore._lognorm_cosine_csr(s.select_genes(qc.hvgs), sf, 2.0, True)
+                  for s, sf in zip(stores, sfs)]
+    # above 1,024 genes quick_correct_csr's PCA is the randomized one (as the
+    # JAX package's); the dense path's is exact: the pairs of an exact PCA
+    exact = bt.reduced_mnn(bt.multi_batch_pca_csr(hvg_stores, d=DIMS, eig_method="exact")
+                           .components, k=K, knn_method="auto")
+    c = pair_set(exact.merge_info[0], 2 * OOC_N)
+    jac_exact = np.intersect1d(c, b).size / np.union1d(c, b).size
+    jac_rand = np.intersect1d(c, a).size / np.union1d(c, a).size
+    line["dense_quick_correct"].update(pair_jaccard_exact_pca=jac_exact,
+                                       exact_pca_vs_randomized_pair_jaccard=jac_rand)
+    print(f"  with an exact PCA of the HVG stores: pair Jaccard {jac_exact:.5f} against the "
+          f"dense path, {jac_rand:.5f} against the randomized one", flush=True)
+
+    # the transfer modes on the HVG stores, then at 25%, 50%, 75% and 100%
+    line["transfer"] = [transfer_modes(torch, np, bt, hvg_stores, "HVG stores")]
+    for p in CROSSOVER_DENSITIES:
+        st = random_store(torch, np, bt, OOC_N, HVG_N, p)
+        line["transfer"].append(transfer_modes(torch, np, bt, [st], f"1 x {OOC_N:,} x {HVG_N:,}"))
+        del st
+
+    # the other engines
+    def engine(name, fn):
+        zero_counts(path_kernels)
+        res, s = sync_time(torch, fn)
+        launches[name] = read_counts(path_kernels)
+        line[name + "_s"] = s
+        print(f"  {name}: {s:.3f} s, launches {launches[name]}", flush=True)
+        return res
+
+    small = [s.select_cells(np.arange(CLASSIC_N)) for s in hvg_stores]
+    sub = np.arange(0, n_hvg, 4)
+    mc = engine("mnn_correct_csr", lambda: bt.mnn_correct_csr(small, subset_row=sub))
+    check(tuple(mc.corrected.shape) == (2 * CLASSIC_N, sub.size)
+          and bool(torch.isfinite(mc.corrected).all()) and launches["mnn_correct_csr"]["topk_rows"] > 0,
+          f"mnn_correct_csr 2 x {CLASSIC_N:,} x {n_hvg:,}, subset_row: finite, K2 ran")
+    mc = engine("mnn_correct_csr_correct_all", lambda: bt.mnn_correct_csr(
+        small, subset_row=sub, correct_all=True))
+    check(isinstance(mc.corrected, np.ndarray) and mc.corrected.shape == (2 * CLASSIC_N, n_hvg)
+          and bool(np.isfinite(mc.corrected).all()),
+          "mnn_correct_csr with correct_all: a finite host result (out_on_host)")
+    cm = engine("cluster_mnn_csr", lambda: bt.cluster_mnn_csr(hvg_stores, clusters=labels))
+    check(bool(torch.isfinite(cm.corrected).all()) and launches["cluster_mnn_csr"]["topk_rows"] > 0,
+          f"cluster_mnn_csr: finite, {len(cm.cluster_meta['meta'])} centroids, K2 ran")
+    rs = engine("rescale_batches_csr", lambda: bt.rescale_batches_csr(hvg_stores))
+    check(all(np.isfinite(s.data).all() and np.array_equal(s.indptr, h.indptr)
+              for s, h in zip(rs, hvg_stores)), "rescale_batches_csr: finite, pattern kept")
+    rg = engine("regress_batches_csr", lambda: bt.regress_batches_csr(hvg_stores))
+    check(rg.shape == (2 * OOC_N, n_hvg) and bool(np.isfinite(rg.block(0, 4096)).all()),
+          "regress_batches_csr: finite residual block")
+    pairs = [i.pairs for i in out.merge_info]
+    dv = engine("mnn_delta_variance_blocked", lambda: bt.mnn_delta_variance_blocked(
+        hvg_stores, pairs))
+    check(bool(np.isfinite(dv.adjusted).all()) and dv.adjusted.shape == (n_hvg,),
+          f"mnn_delta_variance_blocked on CSR over {pairs[0].shape[0]} pairs: finite")
+    del hvg_stores, small
+
+    # the card against the CPU at 2 x 2,000 x 500, ~10% density, fp32 CSR
+    (c_small, lab_small) = droplet_counts(torch, 2000, 500, log_shift=-2.5)
+    small = [card_to_csr(torch, np, bt, c) for c in c_small]
+    sd = [density(s) for s in small]
+    for s in small:
+        host = list(bt.dense_blocks(s, block_rows=768))
+        dev = list(bt.device_dense_blocks(s, block_rows=768))
+        check(all(torch.equal(d.cpu(), torch.from_numpy(h)) for (h, _), (d, _) in zip(host, dev)),
+              f"device_dense_blocks bit for bit against the host densify (density {density(s):.4f})")
+    kw = dict(hvg_n=200, d=DIMS, k=K, min_mean=UMI_MIN_MEAN)
+    gpu = bt.quick_correct_csr(small, **kw)
+    cpu = bt.quick_correct_csr(small, device="cpu", **kw)
+    check(np.array_equal(gpu.hvgs, cpu.hvgs), "2 x 2,000 x 500: the same HVGs")
+    ga, ca = pair_set(gpu.corrected.merge_info[0], 4000), pair_set(cpu.corrected.merge_info[0],
+                                                                   4000)
+    same_pairs = np.array_equal(np.sort(ga), np.sort(ca))
+    jac_small = np.intersect1d(ga, ca).size / np.union1d(ga, ca).size
+    pc_err = aligned_diff(torch, gpu.corrected, cpu.corrected)
+
+    def genes(res):
+        return res.corrected.cpu().double() @ res.rotation.cpu().double().T
+    want = genes(cpu.corrected)
+    row_err = (genes(gpu.corrected) - want).abs().amax(1) / want.abs().max()
+    err, close = float(row_err.max()), float((row_err <= 1e-4).double().mean())
+    print(f"  2 x 2,000 x 500 (densities {[round(d, 4) for d in sd]}): pair Jaccard "
+          f"{jac_small:.5f}; in gene space {close:.5f} of the rows within 1e-4 x max, the "
+          f"largest {err:.3g} x max; {pc_err:.3g} x max|corrected| in PC space after sign "
+          "alignment", flush=True)
+    # fp32 on both sides: the two eigensolvers place the PCA's weak, nearly
+    # equal directions ~1e-4 apart (compare in gene space, corrected @
+    # rotation.T, blind to turns within the kept subspace), which moves a
+    # tricube neighbour at a near-tie, and with it its cell's correction,
+    # as in phase 9; a near-tied pair can come and go
+    if same_pairs:
+        check(close >= 0.999, f"identical pairs, corrected within 1e-4 x max in gene space "
+                              f"on {close:.5f} >= 0.999 of the rows")
+    cg = bt.cluster_mnn_csr(small, clusters=lab_small)
+    cc = bt.cluster_mnn_csr(small, clusters=lab_small, device="cpu")
+    check(all(np.array_equal(cg.cluster_meta[k], cc.cluster_meta[k])
+              for k in ("cluster", "batch", "meta")), "cluster_mnn_csr: the same cluster_meta")
+    line["card_vs_cpu"] = {"densities": sd, "pair_jaccard": jac_small, "identical_pairs": same_pairs,
+                           "gene_space_rows_within_1e-4": close, "gene_space_diff_rel": err,
+                           "pc_space_aligned_diff_rel": pc_err}
+
+    # the CLI in a subprocess on the card, against an in-process call, on
+    # phase 12's small counts (the CLI keeps the default min_mean)
+    cli = os.path.join(root, "build", "chip_smoke_cli")
+    dirs = []
+    for i, c in enumerate(quick_counts(torch, 2000, 500)):
+        npy = os.path.join(cli, f"b{i}.npy")
+        os.makedirs(cli, exist_ok=True)
+        np.save(npy, c.cpu().numpy())
+        dirs.append(os.path.join(cli, f"store{i}"))
+        cli_run(root, ["import-dense", npy, dirs[-1]])
+    info = json.loads(cli_run(root, ["info", dirs[0]]))
+    check(info["cells"] == 2000 and info["genes"] == 500, f"info: {info}")
+    outdir = os.path.join(cli, "out")
+    cli_run(root, ["quick-correct", "--input", *dirs, "--output", outdir, "--hvgs", "200",
+                   "--d", str(DIMS), "--k", str(K)])
+    ref = bt.quick_correct_csr([bt.CSRCells.load(d) for d in dirs], hvg_n=200, d=DIMS, k=K)
+    got = np.load(os.path.join(outdir, "corrected.npy"))
+    want = ref.corrected.corrected.cpu().numpy()
+    cli_err = float(np.abs(got - want).max() / np.abs(want).max())
+    with open(os.path.join(outdir, "merge_info.json")) as fh:
+        n_pairs = [m["n_pairs"] for m in json.load(fh)]
+    check(np.array_equal(np.load(os.path.join(outdir, "hvgs.npy")), ref.hvgs)
+          and n_pairs == [i.pairs.shape[0] for i in ref.corrected.merge_info]
+          and cli_err <= 1e-6,
+          f"python -m batchelor_torch quick-correct: the same HVGs and pairs ({n_pairs}), "
+          f"corrected within 1e-6 x max|corrected| of an in-process call ({cli_err:.3g})")
+    line["cli_max_abs_diff_rel"] = cli_err
+    return line, launches
+
+
+def cli_run(root, argv):
+    """``python -m batchelor_torch`` with ``argv`` from the repository root;
+    its standard output, or a failure with its errors."""
+    out = subprocess.run([sys.executable, "-m", "batchelor_torch", *argv], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"python -m batchelor_torch {argv[0]} exits 0"
+          + ("" if out.returncode == 0 else f":\n{out.stderr[-4000:]}"))
+    return out.stdout
+
+
 def main():
     import torch
 
@@ -1303,6 +1633,8 @@ def main():
     qc_line, qc, counts, qc_launches = timed(12, phase_quick_correct, torch, np, bt, path_kernels)
     cluster_line, labels, cluster_launches = timed(13, phase_cluster, torch, np, bt, path_kernels)
     engines_line = timed(14, phase_engines, torch, np, bt, qc, counts, labels)
+    del qc, counts, labels
+    ooc_line, ooc_launches = timed(15, phase_outofcore, torch, np, bt, path_kernels, root)
 
     for entry in (k1, k2, k3):
         entry["launches"] = launches[entry["name"]]
@@ -1314,7 +1646,9 @@ def main():
             "fused_merge_step_exact": fused_line["exact"]["launches"][entry["name"]],
             "mnn_correct": classic_line["launches"][entry["name"]],
             "quick_correct": qc_launches[entry["name"]],
-            "cluster_mnn": cluster_launches[entry["name"]]}
+            "cluster_mnn": cluster_launches[entry["name"]],
+            **{path: ooc_launches[path][entry["name"]]
+               for path in ("quick_correct_csr", "cluster_mnn_csr", "mnn_correct_csr")}}
     k4["launches_by_path"] = {"pass1_precision_probe": k4["launches"]}
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(json.dumps({"main_path": "reduced_mnn 2x100000x50 k=20 auto",
@@ -1332,6 +1666,7 @@ def main():
     print(json.dumps(qc_line), flush=True)
     print(json.dumps(cluster_line), flush=True)
     print(json.dumps(engines_line), flush=True)
+    print(json.dumps(ooc_line), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

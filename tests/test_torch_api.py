@@ -30,13 +30,9 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The JAX package's exports that wait for the port's out-of-core (CSR) and
-# multi-device slices (ROADMAP Queue 1 items 9 and 10).
-STILL_TO_PORT = [
-    "CSRCells", "CSRResidualOp", "cluster_mnn_csr", "dense_blocks", "device_dense_blocks",
-    "distributed_fast_mnn", "make_cells_mesh", "mnn_correct_csr", "quick_correct_csr",
-    "regress_batches_csr", "rescale_batches_csr",
-]
+# The JAX package's exports that wait for the port's multi-device slice
+# (ROADMAP Queue 1 item 10).
+STILL_TO_PORT = ["distributed_fast_mnn", "make_cells_mesh"]
 
 
 def _np(x):

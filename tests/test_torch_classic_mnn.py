@@ -175,6 +175,64 @@ def test_mnn_correct_matches_jax(name, rng):
         assert tres.corrected.shape[1] == 40
 
 
+def _one_minus_prob2(data2, corr, sigma2):
+    """1 - prob2 of each cell of the corrected batch in the variance
+    adjustment (the weighted share of its batch that projects strictly above
+    it along its correction vector), in fp64 as a sum over those cells, so
+    it is not lost to the cancellation in 1 - prob2."""
+    g = corr / np.sqrt((corr * corr).sum(1))[:, None]
+    proj = g @ data2.T
+    own = np.diag(proj)
+    gram = data2 @ data2.T
+    sq = np.diag(gram)
+    dist2 = sq[:, None] + sq[None, :] - 2 * gram - (own[:, None] - proj) ** 2
+    lp = -np.maximum(dist2, 0.0) / sigma2
+    np.fill_diagonal(lp, 0.0)
+    w = np.exp(lp - lp.max(1, keepdims=True))
+    above = proj > own[:, None]
+    np.fill_diagonal(above, False)
+    return (w * above).sum(1) / w.sum(1)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_mnn_correct_unnormalized_output_variance_adjustment(seed):
+    """``cos_norm_out=False`` with ``var_adj`` at the default sigma = 0.1:
+    the variance adjustment runs on raw output values, where the kernel
+    weights underflow to one-hot rows. A cell whose 1 - prob2 is below fp64
+    resolution has prob2 = 1 in fp64 and crosses at its batch's total
+    weight, which the two packages sum in other orders; such cells are
+    counted, and each corrected row there must still be its input plus its
+    correction vector scaled by at least 1. Every other row, the first
+    batch's and any resolved cell's, agrees within 1e-8."""
+    from batchelor_torch.correct.classic_mnn import _compute_correction_vectors
+    from batchelor_torch.ops.cosine_norm import cosine_norm
+
+    rng = np.random.default_rng(seed)
+    a1 = rng.normal(5, 1, size=(60, 30))
+    a2 = rng.normal(7, 1, size=(70, 30))
+    jres = j_mnn_correct([jnp.asarray(a1), jnp.asarray(a2)], cos_norm_out=False)
+    tres = t_mnn_correct([a1, a2], cos_norm_out=False, device="cpu")
+    pairs = tres.merge_info[0].pairs
+    assert np.array_equal(pairs, jres.merge_info[0].pairs)
+    # the out-space correction both packages scale (distances in cosine space)
+    corr = _compute_correction_vectors(T(a1), T(a2), pairs[:, 0], pairs[:, 1] - 60,
+                                       cosine_norm(T(a2)), 0.1).numpy()
+    unresolved = _one_minus_prob2(a2, corr, 0.1) <= np.finfo(np.float64).eps
+    j, t = np.asarray(jres.corrected), tres.corrected.numpy()
+    held = np.concatenate([np.ones(60, bool), ~unresolved])
+    assert np.allclose(t[held], j[held], atol=1e-8, rtol=0)
+    differ = np.abs(t[60:] - j[60:]).max(1) > 1e-8
+    assert not (differ & ~unresolved).any()
+    for res in (t, j):
+        delta = res[60:][differ] - a2[differ]
+        c = corr[differ]
+        scale = (delta * c).sum(1) / (c * c).sum(1)
+        assert (scale >= 1 - 1e-12).all()
+        assert np.allclose(delta, scale[:, None] * c, atol=1e-8, rtol=0)
+    print(f"seed {seed}: {int(unresolved.sum())} of 70 cells below fp64 resolution, "
+          f"{int(differ.sum())} of them differ")
+
+
 def test_mnn_correct_single_vs_multi(rng):
     b1 = rng.normal(size=(50, 30))
     b2 = rng.normal(size=(70, 30)) + 1

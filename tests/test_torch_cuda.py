@@ -566,3 +566,68 @@ def test_batch_correct_regress_card_matches_cpu(card):
     assert torch.allclose(gpu.corrected.cpu(), cpu.corrected, atol=1e-10, rtol=0)
     sign = torch.sign((gpu.corrected_pcs.cpu() * cpu.corrected_pcs).sum(0))
     assert torch.allclose(gpu.corrected_pcs.cpu() * sign, cpu.corrected_pcs, atol=1e-8, rtol=0)
+
+
+def _csr_counts(rng, n, g, density):
+    x = rng.poisson(3.0, size=(n, g)).astype(np.float32) + 1
+    return (x * (rng.uniform(size=(n, g)) < density)).astype(np.float32)
+
+
+def test_device_dense_blocks_card_matches_host(card):
+    from batchelor_torch import CSRCells, dense_blocks, device_dense_blocks
+
+    rng = np.random.default_rng(24)
+    x = _csr_counts(rng, 1000, 300, 0.1)
+    x[[5, 999]] = 0                                      # empty rows, the last too
+    csr = CSRCells.from_dense(x)
+    host = list(dense_blocks(csr, block_rows=384))
+    dev = list(device_dense_blocks(csr, block_rows=384))
+    assert [n for _, n in dev] == [n for _, n in host] == [384, 384, 232]
+    for (hb, _), (db, _) in zip(host, dev):
+        assert db.device.type == "cuda" and torch.equal(db.cpu(), torch.from_numpy(hb))
+    last, n = list(device_dense_blocks(csr, block_rows=384, pad=False))[-1]
+    assert tuple(last.shape) == (232, 300) and torch.equal(last.cpu(), torch.from_numpy(x[768:]))
+    empty = CSRCells.from_dense(np.zeros((5, 10), np.float32))
+    blocks = list(device_dense_blocks(empty, block_rows=8))
+    assert len(blocks) == 1 and blocks[0][1] == 5 and not bool(blocks[0][0].any())
+
+
+def test_outofcore_pca_transfer_modes_on_the_card(card):
+    from batchelor_torch import CSRCells, multi_batch_pca_csr
+
+    rng = np.random.default_rng(25)
+    csrs = [CSRCells.from_dense(_csr_counts(rng, n, 200, 0.08)) for n in (3000, 2500)]
+    kw = dict(d=10, block_rows=1024, eig_method="exact")
+    sp = multi_batch_pca_csr(csrs, transfer="sparse", **kw)
+    dn = multi_batch_pca_csr(csrs, transfer="dense", **kw)
+    assert sp.rotation.device.type == "cuda"
+    assert torch.equal(sp.centers, dn.centers) and torch.equal(sp.rotation, dn.rotation)
+    for a, b in zip(sp.components, dn.components):
+        assert np.array_equal(a, b)
+
+
+def test_quick_correct_csr_card_matches_cpu(card):
+    from batchelor_torch import CSRCells, quick_correct_csr
+
+    # 12 cell types and d = 6: the PCA keeps strong, well-separated
+    # directions; with fewer types than d the cut would fall among nearly
+    # equal noise directions, which the two eigensolvers place apart
+    rng = np.random.default_rng(26)
+    lam = np.exp(rng.normal(size=(12, 400)) - 1.5)
+    stores = [CSRCells.from_dense(rng.poisson(lam[rng.integers(0, 12, n)] * s)
+                                  .astype(np.float32)) for n, s in ((900, 1.0), (800, 1.6))]
+    kw = dict(hvg_n=150, d=6, k=15, block_rows=512)
+    gpu = quick_correct_csr(stores, **kw)
+    cpu = quick_correct_csr(stores, device="cpu", **kw)
+    assert gpu.corrected.corrected.device.type == "cuda"
+    assert np.array_equal(gpu.hvgs, cpu.hvgs)
+    # fp32 PCs on both sides: a neighbour at a near-tie can rank apart, so
+    # the pairs agree as sets up to a few, and the corrected values (in gene
+    # space, blind to how the eigensolvers turn near-equal directions) on
+    # all but the few rows such a pair moves
+    a = set(map(tuple, gpu.corrected.merge_info[0].pairs.tolist()))
+    b = set(map(tuple, cpu.corrected.merge_info[0].pairs.tolist()))
+    assert len(a & b) / len(a | b) >= 0.99
+    want = _gene_space(cpu.corrected)
+    close = (_gene_space(gpu.corrected) - want).abs().amax(1) <= 1e-4 * float(want.abs().max())
+    assert float(close.double().mean()) >= 0.99

@@ -34,7 +34,8 @@ def test_no_jax_in_the_port():
         "assert not bad, bad\n"
         "new = ['ops.cosine_norm', 'ops.pca', 'ops.lowrank', 'ops.rescore_cuda', 'ops.pass1_cuda',\n"
         "       'ops.residual', 'ops.normalization', 'ops.stats', 'correct.diagnostics',\n"
-        "       'correct.linear', 'correct.cluster_mnn', 'correct.dispatch', 'correct.experiments']\n"
+        "       'correct.linear', 'correct.cluster_mnn', 'correct.dispatch', 'correct.experiments',\n"
+        "       'native.bindings', 'io.csr', 'ops.pca_outofcore', 'correct.outofcore', '__main__']\n"
         "assert all('batchelor_torch.' + m in sys.modules for m in new)\n"
         "print('ok', len([m for m in sys.modules if m.startswith('batchelor_torch')]))\n"
     )
@@ -55,6 +56,7 @@ def test_entry_points_default_to_cuda(monkeypatch, rng):
     pairs = [np.array([[0, 20], [1, 21], [2, 22]])]
     labels, batch = np.arange(40) % 3, np.repeat([0, 1], 20)
     ds = [bt.SingleCellDataset(assays={"logcounts": m}) for m in b]
+    stores = [bt.CSRCells.from_dense(c) for c in counts]
     for call in (lambda: reduced_mnn(b), lambda: query_knn(b[0], b[1], 2),
                  lambda: find_mutual_nn(b[0], b[1], 2, 2),
                  lambda: convert.from_numpy(b[0]), lambda: device.resolve_device("cuda"),
@@ -69,7 +71,14 @@ def test_entry_points_default_to_cuda(monkeypatch, rng):
                  lambda: bt.cluster_abundance_var(labels, batch),
                  lambda: bt.batch_correct(b, params=bt.NoCorrectParams()),
                  lambda: bt.correct_experiments(ds, params=bt.NoCorrectParams()),
-                 lambda: bt.quick_correct(counts, hvg_n=4)):
+                 lambda: bt.quick_correct(counts, hvg_n=4),
+                 lambda: list(bt.device_dense_blocks(stores[0])),
+                 lambda: bt.multi_batch_pca_csr(stores, d=2),
+                 lambda: bt.quick_correct_csr(stores, hvg_n=4),
+                 lambda: bt.regress_batches_csr(stores),
+                 lambda: bt.mnn_correct_csr(stores),
+                 lambda: bt.cluster_mnn_csr(stores, clusters=[labels[:20], labels[20:]]),
+                 lambda: bt.mnn_delta_variance_blocked(stores, pairs)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert device.resolve_device("cpu") == torch.device("cpu")
