@@ -8,8 +8,9 @@ Gaussian kernel -> meta-clusters as connected components of the centroid
 MNN-pair graph. The cells' nearest-centroid search is the port's
 ``query_knn`` (kernel K2 on rows of k plus a few centroids); every distance
 product runs in full fp32. ``cluster_mnn_csr`` takes CSR stores: its
-centroids are host means over the nonzeros, and the cells' projection and
-propagation stream through the device block by block.
+centroids are host means over the nonzeros, and the cells' projection
+streams through the device block by block; both share the merge and the
+propagation.
 """
 from __future__ import annotations
 
@@ -232,6 +233,35 @@ def cluster_mnn(
 
     centers, levels = _compute_centroids(batches_n, clusters, restrict)
 
+    def project(i, rotation, adj):
+        b = batches_n[i]
+        sub = b if subset_row is None else subset_columns(b, np.asarray(subset_row))
+        with full_fp32_matmul():
+            return sub @ rotation - adj[None, :]
+
+    res = _correct_by_centroids(
+        centers, levels, clusters, project, [b.shape[0] for b in batches], restrict,
+        subset_row=subset_row, correct_all=correct_all, merge_order=merge_order,
+        auto_merge=auto_merge, min_batch_skip=min_batch_skip, batch_names=batch_names,
+        device=dev)
+    if single:
+        reo = divided.reorder
+        res.corrected = res.corrected[as_tensor(reo, dev, torch.long)]
+        res.batch = res.batch[reo]
+        res.cluster = res.cluster[reo]
+    return res
+
+
+def _correct_by_centroids(centers, levels, clusters, project, n_cells, restrict, *,
+                          subset_row, correct_all, merge_order, auto_merge,
+                          min_batch_skip, batch_names, device) -> ClusterMNNResult:
+    """What ``cluster_mnn`` and ``cluster_mnn_csr`` share once each batch's
+    centroids are known: the centroids' full-rank PCA, their reducedMNN
+    merge with k=1, the per-cell propagation and the meta-clusters.
+    ``project(i, rotation, adj)`` returns batch i's (N_i, d) cells in the
+    centroids' PCs; the result is in batch order."""
+    dev = device
+    nb = len(centers)
     # full-rank PCA of the centroids (reference .full_rank_pca,
     # R/clusterMNN.R:174-184): d = total#centroids - 1, exact; "gram" takes
     # the smaller-side cross-product, a (n_centroids x n_centroids) eigh
@@ -267,45 +297,29 @@ def cluster_mnn(
     corrected_blocks = []
     last = 0
     for i in range(nb):
-        b = batches_n[i]
-        sub = b if subset_row is None else subset_columns(b, np.asarray(subset_row))
-        with full_fp32_matmul():
-            proj = sub @ rotation - adj[None, :]
         cent = pca.components[i]
         ncent = cent.shape[0]
         delta = merge_out.corrected[last:last + ncent] - cent
         last += ncent
         r = None if restrict is None else restrict[i]
-        corrected_blocks.append(_propagate(proj, cent, delta, r))
+        corrected_blocks.append(_propagate(project(i, rotation, adj), cent, delta, r))
 
-    corrected = torch.cat(corrected_blocks, 0)
-    cluster = np.concatenate([np.asarray(c) for c in clusters])
-    origin = np.repeat(np.arange(nb), [b.shape[0] for b in batches])
-    labels = np.asarray(batch_names)[origin] if batch_names is not None else origin
-
+    origin = np.repeat(np.arange(nb), n_cells)
     # meta-clusters: connected components of the centroid pair graph
     # (reference R/clusterMNN.R:162-165)
     all_pairs = (np.concatenate([info.pairs for info in merge_out.merge_info])
                  if merge_out.merge_info else np.empty((0, 2), dtype=np.int64))
     centroid_batches = np.repeat(np.arange(nb), [len(lv) for lv in levels])
-    cluster_meta = {
-        "cluster": np.concatenate([np.asarray(lv) for lv in levels]),
-        "batch": (np.asarray(batch_names)[centroid_batches]
-                  if batch_names is not None else centroid_batches),
-        "meta": _union_find(total_centroids, all_pairs),
-    }
-
-    if single:
-        reo = divided.reorder
-        corrected = corrected[as_tensor(reo, dev, torch.long)]
-        labels = labels[reo]
-        cluster = cluster[reo]
-
     return ClusterMNNResult(
-        corrected=corrected,
-        batch=labels,
-        cluster=cluster,
-        cluster_meta=cluster_meta,
+        corrected=torch.cat(corrected_blocks, 0),
+        batch=np.asarray(batch_names)[origin] if batch_names is not None else origin,
+        cluster=np.concatenate([np.asarray(c) for c in clusters]),
+        cluster_meta={
+            "cluster": np.concatenate([np.asarray(lv) for lv in levels]),
+            "batch": (np.asarray(batch_names)[centroid_batches]
+                      if batch_names is not None else centroid_batches),
+            "meta": _union_find(total_centroids, all_pairs),
+        },
         centroid_result=merge_out,
         rotation=pca.rotation,
         centers=pca.centers,
@@ -346,19 +360,6 @@ def _proj_block(block, l2, rotation, adj):
         return (block / safe[:, None]) @ rotation - adj[None, :]
 
 
-def _min_cent_dist(proj, cent):
-    """Each row's distance to its nearest centroid."""
-    return _sq_dists(proj, cent).amin(1).clamp(min=0).sqrt()
-
-
-def _propagate_block(proj, cent, delta, sigma):
-    """Softmax-weighted centroid deltas (the reference's
-    .smooth_gaussian_from_centroids, R/clusterMNN.R:289-312)."""
-    w = torch.softmax(-_sq_dists(proj, cent) / (sigma * sigma), dim=1)
-    with full_fp32_matmul():
-        return proj + w @ delta
-
-
 def cluster_mnn_csr(
     batches: Sequence,
     *,
@@ -379,9 +380,9 @@ def cluster_mnn_csr(
     Matches :func:`cluster_mnn` on the densified inputs, but no expression
     matrix densifies beyond one (block_rows, G_sub) block: the centroids
     are host means over the nonzeros (no transfer of the expression), and
-    the cells' projection and Gaussian propagation stream subset-gene
-    blocks through ``device`` (default: the CUDA device; raises without one
-    unless ``device="cpu"``) as nonzeros. The reference runs this on
+    the cells' projection streams subset-gene blocks through ``device``
+    (default: the CUDA device; raises without one unless ``device="cpu"``)
+    as nonzeros. The reference runs this on
     file-backed matrices through block-processed cosineNorm
     (R/cosineNorm.R:59-61) and streamed centroids (R/clusterMNN.R:228-242).
 
@@ -436,76 +437,19 @@ def cluster_mnn_csr(
         centers.append(as_tensor(_csr_cluster_means(b, assign, len(lv), scales[i]), dev))
         levels.append(lv)
 
-    total_centroids = sum(c.shape[0] for c in centers)
-    pca = multi_batch_pca(
-        centers,
-        d=total_centroids - 1,
-        subset_row=sub,
-        get_all_genes=correct_all and sub is not None,
-        method="gram",
-        batch_names=batch_names,
-        device=dev,
-    )
-    merge_out = reduced_mnn(
-        pca.components,
-        k=1,
-        merge_order=merge_order,
-        auto_merge=auto_merge,
-        min_batch_skip=min_batch_skip,
-        batch_names=batch_names,
-        device=dev,
-    )
+    # the cells' projection streams through the device; (N_b, d) stays there
+    l2s = [as_tensor(l2.astype(np.float32), dev) for l2 in l2s]
 
-    rotation, centers_vec = pca.rotation, pca.centers
-    if correct_all and sub is not None:
-        s = as_tensor(sub, dev, torch.long)
-        rotation, centers_vec = rotation[s], centers_vec[s]
-    with full_fp32_matmul():
-        adj = centers_vec @ rotation
-
-    corrected_blocks = []
-    last = 0
-    for i in range(nb):
+    def project(i, rotation, adj):
         store = batches[i] if sub is None else batches[i].select_genes(sub)
-        cent = pca.components[i]
-        ncent = cent.shape[0]
-        delta = merge_out.corrected[last:last + ncent] - cent
-        last += ncent
-
-        # the projection, streamed ((N_b, d) stays on the device)
-        l2 = as_tensor(l2s[i].astype(np.float32), dev)
         projs, row0 = [], 0
         for block, n_valid in device_dense_blocks(store, block_rows, pad=False, device=dev):
-            projs.append(_proj_block(block, l2[row0:row0 + n_valid], rotation, adj))
+            projs.append(_proj_block(block, l2s[i][row0:row0 + n_valid], rotation, adj))
             row0 += n_valid
-        proj = torch.cat(projs, 0)
+        return torch.cat(projs, 0)
 
-        # sigma: the median distance of the restricted cells to their
-        # nearest centroid
-        q = proj if restrict[i] is None else proj[as_tensor(restrict[i], dev, torch.long)]
-        sigma = _median(_min_cent_dist(q, cent))
-        corrected_blocks.append(_propagate_block(proj, cent, delta, sigma))
-
-    corrected = torch.cat(corrected_blocks, 0)
-    cluster = np.concatenate([np.asarray(c) for c in clusters])
-    origin = np.repeat(np.arange(nb), [b.n_cells for b in batches])
-    labels = np.asarray(batch_names)[origin] if batch_names is not None else origin
-
-    all_pairs = (np.concatenate([info.pairs for info in merge_out.merge_info])
-                 if merge_out.merge_info else np.empty((0, 2), dtype=np.int64))
-    centroid_batches = np.repeat(np.arange(nb), [len(lv) for lv in levels])
-    cluster_meta = {
-        "cluster": np.concatenate([np.asarray(lv) for lv in levels]),
-        "batch": (np.asarray(batch_names)[centroid_batches]
-                  if batch_names is not None else centroid_batches),
-        "meta": _union_find(total_centroids, all_pairs),
-    }
-    return ClusterMNNResult(
-        corrected=corrected,
-        batch=labels,
-        cluster=cluster,
-        cluster_meta=cluster_meta,
-        centroid_result=merge_out,
-        rotation=pca.rotation,
-        centers=pca.centers,
-    )
+    return _correct_by_centroids(
+        centers, levels, clusters, project, [b.n_cells for b in batches], restrict,
+        subset_row=sub, correct_all=correct_all, merge_order=merge_order,
+        auto_merge=auto_merge, min_batch_skip=min_batch_skip, batch_names=batch_names,
+        device=dev)

@@ -12,7 +12,7 @@ densifies on the host above it, a TPU figure. On an H100 host the sparse
 transfer (pinned copies, densified on the card) beat the host densify and
 its pageable copy at every density measured, up to 100% (``chip_smoke.py``
 phase 15, PERF.md), so the port's engines always stream through
-``device_dense_blocks``; ``dense_blocks`` serves ``transfer="dense"``.
+``device_dense_blocks`` and take no ``transfer`` option.
 """
 from __future__ import annotations
 

@@ -20,23 +20,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, full_fp32_matmul, resolve_device
-from ..io.csr import CSRCells, dense_blocks, device_dense_blocks
+from ..io.csr import CSRCells, device_dense_blocks
 from .pca import MultiBatchPCAResult, _randomized_psd_eigh, construct_weight_vector, full_eigh
 
-__all__ = ["multi_batch_pca_csr", "stream_blocks"]
-
-
-def stream_blocks(csr: CSRCells, transfer: str, block_rows: int, dev: torch.device):
-    """``csr``'s dense (n_valid, G) blocks on ``dev``, by ``transfer``: "dense"
-    densifies on the host and copies fp32 rows; "sparse" and "auto" ship the
-    nonzeros and densify on the device (faster at every density on an H100
-    host, ``io/csr.py``)."""
-    if transfer == "dense":
-        for block, _ in dense_blocks(csr, block_rows, pad=False):
-            yield torch.from_numpy(block).to(dev)
-    else:
-        for block, _ in device_dense_blocks(csr, block_rows, pad=False, device=dev):
-            yield block
+__all__ = ["multi_batch_pca_csr"]
 
 
 def multi_batch_pca_csr(
@@ -48,7 +35,6 @@ def multi_batch_pca_csr(
     block_rows: int = 8192,
     eig_method: str = "auto",
     batch_names: Optional[Sequence[str]] = None,
-    transfer: str = "auto",
     device: DeviceLike = None,
 ) -> MultiBatchPCAResult:
     """Weighted multi-batch PCA streaming CSR batches block by block.
@@ -57,15 +43,13 @@ def multi_batch_pca_csr(
     grand-mean centering and per-batch 1/sqrt(N_b/w_b) scaling), but no
     batch is ever dense at once. The Gram matrix and the gene sums are
     accumulated in fp32 on ``device`` (default: the CUDA device; raises
-    without one unless ``device="cpu"``). ``transfer`` picks how blocks
-    reach it ("dense", or "sparse", which "auto" takes; see
-    :func:`stream_blocks`); the blocks are bit-identical either way, and so
-    is the result. ``eig_method``: "exact" (full ``eigh``), "randomized",
+    without one unless ``device="cpu"``), which the blocks reach as their
+    nonzeros (:func:`device_dense_blocks`; the JAX package's ``transfer``
+    option is not taken: on an H100 host the host densify was slower at
+    every density up to 100%, PERF.md). ``eig_method``: "exact" (full ``eigh``), "randomized",
     or "auto" (randomized above 1,024 genes). The components come back as
     host numpy arrays; the rotation and centers stay on the device.
     """
-    if transfer not in ("auto", "dense", "sparse"):
-        raise ValueError(f"unknown transfer mode {transfer!r}")
     dev = resolve_device(device)
     if subset_row is not None:
         batches = [c.select_genes(subset_row) for c in batches]
@@ -80,7 +64,7 @@ def multi_batch_pca_csr(
         for csr in batches:
             acc_g = torch.zeros((g, g), dtype=torch.float32, device=dev)
             acc_s = torch.zeros((g,), dtype=torch.float32, device=dev)
-            for block in stream_blocks(csr, transfer, block_rows, dev):
+            for block, _ in device_dense_blocks(csr, block_rows, pad=False, device=dev):
                 acc_g += block.T @ block
                 acc_s += block.sum(0)
             grams.append(acc_g)
@@ -107,7 +91,8 @@ def multi_batch_pca_csr(
         components: List[np.ndarray] = []
         for csr in batches:
             outs = [((block - centers[None, :]) @ v).cpu().numpy()
-                    for block in stream_blocks(csr, transfer, block_rows, dev)]
+                    for block, _ in device_dense_blocks(csr, block_rows, pad=False,
+                                                        device=dev)]
             components.append(np.concatenate(outs, axis=0) if outs
                               else np.zeros((0, dd), np.float32))
 

@@ -104,19 +104,23 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      K1, K2 and K3 on the launch counters, one call profiled, beside the
      dense quick_correct on the same counts (HVG overlap, pair Jaccard,
      and the pair Jaccard with an exact PCA of the HVG stores in place of
-     the randomized one that quick_correct_csr takes above 1,024 genes);
-     multi_batch_pca_csr with transfer "sparse" and "dense" bit-identical
-     and timed in turns on the HVG stores and on 100,000 x 2,000 stores at
+     the randomized one that quick_correct_csr takes above 1,024 genes,
+     at least 0.95);
+     multi_batch_pca_csr as it runs (the nonzeros shipped, "sparse") and on
+     host-densified blocks ("dense") bit-identical and timed in turns on the HVG stores and on 100,000 x 2,000 stores at
      25%, 50%, 75% and 100% density, with each mode's host-to-device bytes;
      mnn_correct_csr (2 x 10,000 x 2,000, subset_row, then correct_all on
      the host), cluster_mnn_csr with the simulation's labels,
      rescale_batches_csr, regress_batches_csr and mnn_delta_variance_blocked
      on CSR input, each timed with its launches; the card against the CPU at
      2 x 2,000 x 500 (~10%): device_dense_blocks bit for bit, the same HVGs,
-     identical pairs and corrected within 1e-4 x max in gene space on >=
-     99.9% of rows (a tricube neighbour at a near-tie moves its cell, as in
-     phase 9; printed only if a near-tied pair differs), the same
-     cluster_meta; and
+     a pair Jaccard of at least 0.999, every row with the same pairs and
+     tricube neighbours within 1e-4 x max in gene space, the others (the
+     eigensolvers place near-equal PCA directions ~1e-4 apart, which moves
+     a tricube neighbour at a near-tie, and its cell, as in phase 9) at
+     most 0.1% of rows and within 0.05; the CPU's merge on the card's PCA stage (pca_cache_dir):
+     identical pairs, every row within 1e-4 x max; the same cluster_meta;
+     and
      python -m batchelor_torch import-dense, info and quick-correct in a
      subprocess, its corrected.npy within 1e-6 x max|corrected| of an
      in-process call with the same HVGs and pair counts.
@@ -128,6 +132,7 @@ exits non-zero and prints no result.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1337,14 +1342,29 @@ def sync_time(torch, fn):
 
 
 def transfer_modes(torch, np, bt, stores, label):
-    """multi_batch_pca_csr with transfer="sparse" and "dense" on ``stores``:
-    bit-identical results, each mode timed in turns (sparse, dense, dense,
-    sparse), and the host-to-device bytes of each; returns its line."""
+    """multi_batch_pca_csr on ``stores`` as it runs (the nonzeros shipped,
+    "sparse") and with each block densified on the host and copied instead
+    ("dense", the JAX package's other transfer): bit-identical results, each
+    mode timed in turns (sparse, dense, dense, sparse), and the host-to-device
+    bytes of each; returns its line."""
+    from unittest import mock
+
+    from batchelor_torch.ops import pca_outofcore
+
+    def host_densify(csr, block_rows, pad=False, device=None):
+        for block, n_valid in bt.dense_blocks(csr, block_rows, pad=pad):
+            yield torch.from_numpy(block).to(device), n_valid
+
+    def run(mode):
+        if mode == "sparse":
+            return bt.multi_batch_pca_csr(stores, **kw)
+        with mock.patch.object(pca_outofcore, "device_dense_blocks", host_densify):
+            return bt.multi_batch_pca_csr(stores, **kw)
+
     kw = dict(d=DIMS, block_rows=8192)
     res, secs = {}, {"sparse": [], "dense": []}
     for mode in ("sparse", "dense", "dense", "sparse"):
-        res[mode], s = sync_time(torch, lambda: bt.multi_batch_pca_csr(stores, transfer=mode,
-                                                                       **kw))
+        res[mode], s = sync_time(torch, lambda: run(mode))
         secs[mode].append(s)
     sp, dn = res["sparse"], res["dense"]
     same = (torch.equal(sp.centers, dn.centers) and torch.equal(sp.rotation, dn.rotation)
@@ -1360,6 +1380,25 @@ def transfer_modes(torch, np, bt, stores, label):
           f"({line['sparse']['h2d_bytes'] / 1e9:.3f} GB to the card), dense {secs['dense']} s "
           f"({line['dense']['h2d_bytes'] / 1e9:.3f} GB)", flush=True)
     return line
+
+
+def tricube_neighbours(fn):
+    """``fn()`` and the neighbours that its last tricube search found: for
+    each cell of the merge's right side, its nearest MNN-involved cells."""
+    from unittest import mock
+
+    from batchelor_torch.ops import correction
+
+    seen, real = [], correction.query_knn
+
+    def recording(query, data, k, **kw):
+        out = real(query, data, k, **kw)
+        seen.append(out.indices.cpu().numpy())
+        return out
+
+    with mock.patch.object(correction, "query_knn", recording):
+        res = fn()
+    return res, seen[-1]
 
 
 def random_store(torch, np, bt, n, genes, p):
@@ -1457,6 +1496,8 @@ def phase_outofcore(torch, np, bt, path_kernels, root):
                                        exact_pca_vs_randomized_pair_jaccard=jac_rand)
     print(f"  with an exact PCA of the HVG stores: pair Jaccard {jac_exact:.5f} against the "
           f"dense path, {jac_rand:.5f} against the randomized one", flush=True)
+    check(jac_exact >= 0.95, f"the streamed path with an exact PCA finds the dense path's pairs: "
+                             f"Jaccard {jac_exact:.5f} >= 0.95")
 
     # the transfer modes on the HVG stores, then at 25%, 50%, 75% and 100%
     line["transfer"] = [transfer_modes(torch, np, bt, hvg_stores, "HVG stores")]
@@ -1511,8 +1552,11 @@ def phase_outofcore(torch, np, bt, path_kernels, root):
         check(all(torch.equal(d.cpu(), torch.from_numpy(h)) for (h, _), (d, _) in zip(host, dev)),
               f"device_dense_blocks bit for bit against the host densify (density {density(s):.4f})")
     kw = dict(hvg_n=200, d=DIMS, k=K, min_mean=UMI_MIN_MEAN)
-    gpu = bt.quick_correct_csr(small, **kw)
-    cpu = bt.quick_correct_csr(small, device="cpu", **kw)
+    cache = os.path.join(root, "build", "chip_smoke_pca")
+    shutil.rmtree(cache, ignore_errors=True)
+    gpu, nb_gpu = tricube_neighbours(lambda: bt.quick_correct_csr(small, pca_cache_dir=cache,
+                                                                    **kw))
+    cpu, nb_cpu = tricube_neighbours(lambda: bt.quick_correct_csr(small, device="cpu", **kw))
     check(np.array_equal(gpu.hvgs, cpu.hvgs), "2 x 2,000 x 500: the same HVGs")
     ga, ca = pair_set(gpu.corrected.merge_info[0], 4000), pair_set(cpu.corrected.merge_info[0],
                                                                    4000)
@@ -1523,27 +1567,50 @@ def phase_outofcore(torch, np, bt, path_kernels, root):
     def genes(res):
         return res.corrected.cpu().double() @ res.rotation.cpu().double().T
     want = genes(cpu.corrected)
-    row_err = (genes(gpu.corrected) - want).abs().amax(1) / want.abs().max()
-    err, close = float(row_err.max()), float((row_err <= 1e-4).double().mean())
-    print(f"  2 x 2,000 x 500 (densities {[round(d, 4) for d in sd]}): pair Jaccard "
-          f"{jac_small:.5f}; in gene space {close:.5f} of the rows within 1e-4 x max, the "
-          f"largest {err:.3g} x max; {pc_err:.3g} x max|corrected| in PC space after sign "
-          "alignment", flush=True)
+    row_err = ((genes(gpu.corrected) - want).abs().amax(1) / want.abs().max()).numpy()
     # fp32 on both sides: the two eigensolvers place the PCA's weak, nearly
     # equal directions ~1e-4 apart (compare in gene space, corrected @
-    # rotation.T, blind to turns within the kept subspace), which moves a
-    # tricube neighbour at a near-tie, and with it its cell's correction,
-    # as in phase 9; a near-tied pair can come and go
-    if same_pairs:
-        check(close >= 0.999, f"identical pairs, corrected within 1e-4 x max in gene space "
-                              f"on {close:.5f} >= 0.999 of the rows")
+    # rotation.T, blind to turns within the kept subspace); a cell whose
+    # tricube neighbours (the merge's last kNN) were near-tied can take
+    # another one, and moves with it, as in phase 9; a near-tied pair can
+    # come and go. Every other cell is held to 1e-4.
+    odd = np.setxor1d(ga, ca)
+    moved = np.zeros(4000, bool)
+    moved[np.concatenate([odd // 4000, odd % 4000])] = True
+    right0 = small[0].n_cells
+    moved[right0:] |= [set(a) != set(b) for a, b in zip(nb_gpu, nb_cpu)]
+    err_kept = float(row_err[~moved].max())
+    err_moved = float(row_err[moved].max()) if moved.any() else 0.0
+    print(f"  2 x 2,000 x 500 (densities {[round(d, 4) for d in sd]}): pair Jaccard "
+          f"{jac_small:.5f}; {int(moved.sum())} rows touched by a differing pair or with other "
+          f"tricube neighbours, the largest {err_moved:.3g} x max in gene space; the other "
+          f"rows within {err_kept:.3g} x max; {pc_err:.3g} x max|corrected| in PC space after "
+          "sign alignment", flush=True)
+    check(jac_small >= 0.999, f"pair Jaccard {jac_small:.5f} >= 0.999")
+    check(err_kept <= 1e-4, f"corrected in gene space within 1e-4 x max on every row with the "
+                            f"same pairs and tricube neighbours ({err_kept:.3g})")
+    check(moved.mean() <= 1e-3 and err_moved <= 0.05,
+          f"{int(moved.sum())} rows (<= 0.1%) with another pair or tricube neighbour, "
+          f"within 0.05 x max ({err_moved:.3g})")
+    # the merge alone: the CPU's run on the card's PCA stage
+    shared = bt.quick_correct_csr(small, device="cpu", pca_cache_dir=cache, **kw)
+    shutil.rmtree(cache)
+    sa = pair_set(shared.corrected.merge_info[0], 4000)
+    merge_err = float((shared.corrected.corrected - gpu.corrected.corrected.cpu()).abs().max()
+                      / shared.corrected.corrected.abs().max())
+    check(np.array_equal(np.sort(sa), np.sort(ga)) and merge_err <= 1e-4,
+          f"the CPU's merge on the card's PCA stage: identical pairs ({sa.size}), corrected "
+          f"within 1e-4 x max|corrected| ({merge_err:.3g})")
     cg = bt.cluster_mnn_csr(small, clusters=lab_small)
     cc = bt.cluster_mnn_csr(small, clusters=lab_small, device="cpu")
     check(all(np.array_equal(cg.cluster_meta[k], cc.cluster_meta[k])
               for k in ("cluster", "batch", "meta")), "cluster_mnn_csr: the same cluster_meta")
     line["card_vs_cpu"] = {"densities": sd, "pair_jaccard": jac_small, "identical_pairs": same_pairs,
-                           "gene_space_rows_within_1e-4": close, "gene_space_diff_rel": err,
-                           "pc_space_aligned_diff_rel": pc_err}
+                           "rows_moved_by_a_near_tie": int(moved.sum()),
+                           "gene_space_diff_rel_moved": err_moved,
+                           "gene_space_diff_rel_others": err_kept,
+                           "pc_space_aligned_diff_rel": pc_err,
+                           "merge_on_card_pca_diff_rel": merge_err}
 
     # the CLI in a subprocess on the card, against an in-process call, on
     # phase 12's small counts (the CLI keeps the default min_mean)

@@ -10,10 +10,10 @@ closely:
     package loads the other's; densified blocks, subsets and row sums bit
     for bit;
   * ``device_dense_blocks`` bit for bit against the host densify and
-    against JAX's, padded, unpadded and empty; ``multi_batch_pca_csr``'s
-    "sparse", "dense" and "auto" transfers bit for bit against one another,
-    on a sparse and on a fully dense store ("auto" ships nonzeros at every
-    density, where JAX's densifies on the host above 25%);
+    against JAX's, padded, unpadded and empty; ``multi_batch_pca_csr``, which
+    always ships nonzeros, bit for bit against the same PCA on host-densified
+    blocks, on a sparse and on a fully dense store (where JAX's "auto"
+    densifies on the host);
   * ``multi_batch_pca_csr`` against JAX's (exact eigh, fewer than 1,024
     genes): centers within 1e-6, rotation and components within 1e-4 of
     their max after turning each port column to the sign of JAX's (both
@@ -181,24 +181,31 @@ def test_outofcore_pca_matches_jax_and_dense(pca_inputs):
         assert np.abs(a * sign - b.numpy()).max() <= 1e-4 * float(b.abs().max())
 
 
-def test_outofcore_pca_transfer_modes(pca_inputs):
+def _host_densify(csr, block_rows, pad=False, device=None):
+    """The host-densify transfer: ``dense_blocks`` handed over as tensors."""
+    for block, n_valid in bt.dense_blocks(csr, block_rows, pad=pad):
+        yield torch.from_numpy(block), n_valid
+
+
+def test_outofcore_pca_transfer_modes(pca_inputs, monkeypatch):
+    # the port always ships nonzeros; its PCA is bit for bit the one it
+    # computes from host-densified blocks, on a sparse and on a fully dense
+    # store (JAX's "auto" densifies the latter on the host)
+    from batchelor_torch.ops import pca_outofcore
+
     x1, x2, xd = pca_inputs
-    csrs = [bt.CSRCells.from_dense(x1), bt.CSRCells.from_dense(x2)]
     kw = dict(d=6, block_rows=32, eig_method="exact", device="cpu")
-    sp = bt.multi_batch_pca_csr(csrs, transfer="sparse", **kw)
-    dn = bt.multi_batch_pca_csr(csrs, transfer="dense", **kw)
-    assert torch.equal(sp.centers, dn.centers) and torch.equal(sp.rotation, dn.rotation)
-    for a, b in zip(sp.components, dn.components):
-        assert np.array_equal(a, b)
-    with pytest.raises(ValueError, match="transfer"):
-        bt.multi_batch_pca_csr(csrs, d=6, transfer="bogus", device="cpu")
-    # "auto" ships nonzeros at any density, a fully dense batch too
-    mixed = [bt.CSRCells.from_dense(x1), bt.CSRCells.from_dense(xd)]
-    auto = bt.multi_batch_pca_csr(mixed, transfer="auto", **kw)
-    dense = bt.multi_batch_pca_csr(mixed, transfer="dense", **kw)
-    assert torch.equal(auto.centers, dense.centers)
-    for a, b in zip(auto.components, dense.components):
-        assert np.array_equal(a, b)
+    for x in ((x1, x2), (x1, xd)):
+        csrs = [bt.CSRCells.from_dense(b) for b in x]
+        sp = bt.multi_batch_pca_csr(csrs, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(pca_outofcore, "device_dense_blocks", _host_densify)
+            dn = bt.multi_batch_pca_csr(csrs, **kw)
+        assert torch.equal(sp.centers, dn.centers) and torch.equal(sp.rotation, dn.rotation)
+        for a, b in zip(sp.components, dn.components):
+            assert np.array_equal(a, b)
+    with pytest.raises(TypeError, match="transfer"):
+        bt.multi_batch_pca_csr(csrs, d=6, transfer="dense", device="cpu")
 
 
 @pytest.fixture(scope="module")
