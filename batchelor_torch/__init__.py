@@ -23,8 +23,12 @@ CSR stores on disk (``CSRCells``, ``dense_blocks``,
 (``native/libbatchelor.cpp``, built with g++ at first use), the streamed PCA
 (``multi_batch_pca_csr``), ``quick_correct_csr``, ``cluster_mnn_csr``,
 ``mnn_correct_csr``, ``rescale_batches_csr``, ``regress_batches_csr``, and
-the command line (``python -m batchelor_torch``). The multi-device layer is
-not ported yet.
+the command line (``python -m batchelor_torch``). The parallel layer
+(``batchelor_torch.parallel``): one process per device over
+``torch.distributed`` (NCCL on the card, gloo on the CPU), the cells mesh
+(``make_cells_mesh``), the distributed merge step and PCA, ring
+collectives and ``distributed_fast_mnn``, also behind the ``mesh=``
+arguments of the out-of-core engines.
 """
 from .convert import from_numpy, pca_to_numpy, result_to_numpy
 from .correct.classic_mnn import mnn_correct
@@ -77,6 +81,7 @@ from .ops.pca import MultiBatchPCAResult, multi_batch_pca
 from .ops.pca_outofcore import multi_batch_pca_csr
 from .ops.residual import ResidualOp
 from .ops.stats import GeneVarResult, combine_var, get_top_hvgs, model_gene_var
+from .parallel import distributed_fast_mnn, make_cells_mesh
 from .utils.batching import (
     check_batch_consistency,
     check_restrictions,
@@ -110,6 +115,7 @@ __all__ = [
     "CSRResidualOp",
     "dense_blocks",
     "device_dense_blocks",
+    "distributed_fast_mnn",
     "divide_into_batches",
     "fast_mnn",
     "FastMNNParams",
@@ -127,6 +133,7 @@ __all__ = [
     "LinearCorrectionResult",
     "load_pca_stage",
     "LowRankOp",
+    "make_cells_mesh",
     "MergeCheckpointer",
     "MergeStepInfo",
     "MetricsRecorder",

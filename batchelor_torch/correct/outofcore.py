@@ -41,6 +41,8 @@ from ..ops.normalization import rescale_size_factors
 from ..ops.pca import MultiBatchPCAResult
 from ..ops.pca_outofcore import multi_batch_pca_csr
 from ..ops.stats import GeneVarResult, combine_var, get_top_hvgs
+from ..parallel.driver import distributed_fast_mnn
+from ..parallel.mesh import barrier
 from ..utils.telemetry import trace_span
 from .diagnostics import fit_trend_var
 from .experiments import QuickCorrectResult
@@ -101,8 +103,12 @@ def quick_correct_csr(
     block_rows: int = 8192,
     weights=None,
     batch_names: Optional[Sequence[str]] = None,
+    mesh=None,
+    memory: str = "gather",
+    pad_buckets: bool = False,
     checkpoint_dir: Optional[str] = None,
     pca_cache_dir: Optional[str] = None,
+    progress: bool = False,
     device: DeviceLike = None,
 ) -> QuickCorrectResult:
     """quickCorrect over out-of-core CSR stores (raw counts, cells in rows).
@@ -117,8 +123,16 @@ def quick_correct_csr(
     ``pca_cache_dir`` saves the PCA stage (``io.checkpoint.save_pca_stage``)
     and reuses it on a re-run, skipping the PCA; var_explained is not
     cached. ``checkpoint_dir`` checkpoints the merge (``reduced_mnn``).
+
+    With ``mesh`` (a ``parallel.mesh.CellsMesh``; its device is used) every
+    rank calls with the same stores: the streamed PCA splits each block
+    over the ranks (``multi_batch_pca_csr(mesh=)``) and the merge is
+    ``parallel.driver.distributed_fast_mnn`` (``memory``, ``pad_buckets``,
+    ``checkpoint_dir`` and ``progress`` pass through; ``knn_method="auto"``
+    means "exact" there, as in the JAX package); rank 0 writes the PCA
+    cache. Every rank returns the same result.
     """
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if len(stores) < 2:
         raise ValueError("at least two batches must be specified")
     g = stores[0].n_genes
@@ -180,15 +194,35 @@ def quick_correct_csr(
                                       centers=as_tensor(cen, dev), batch_names=names)
         else:
             pca = multi_batch_pca_csr(transformed, d=d, weights=weights, block_rows=block_rows,
-                                      batch_names=batch_names, device=dev)
+                                      batch_names=batch_names, mesh=mesh, device=dev)
             if pca_cache_dir is not None:
-                save_pca_stage(pca_cache_dir, pca.components, pca.rotation, pca.centers, names)
+                if mesh is None or mesh.rank == 0:
+                    save_pca_stage(pca_cache_dir, pca.components, pca.rotation, pca.centers,
+                                   names)
+                if mesh is not None:
+                    barrier(mesh)
     with trace_span("quickcsr/merge"):
-        res = reduced_mnn(
-            pca.components, k=k, prop_k=prop_k, ndist=ndist, merge_order=merge_order,
-            auto_merge=auto_merge, min_batch_skip=min_batch_skip, batch_names=batch_names,
-            knn_method=knn_method, checkpoint_dir=checkpoint_dir, device=dev,
-        )
+        if mesh is None:
+            res = reduced_mnn(
+                pca.components, k=k, prop_k=prop_k, ndist=ndist, merge_order=merge_order,
+                auto_merge=auto_merge, min_batch_skip=min_batch_skip, batch_names=batch_names,
+                knn_method=knn_method, checkpoint_dir=checkpoint_dir, device=dev,
+            )
+        else:
+            res = distributed_fast_mnn(
+                pca.components, mesh, k=k, prop_k=prop_k, ndist=ndist,
+                merge_order=merge_order, auto_merge=auto_merge,
+                min_batch_skip=0.0 if min_batch_skip is None else min_batch_skip,
+                knn_method="exact" if knn_method == "auto" else knn_method,
+                memory=memory, pad_buckets=pad_buckets, checkpoint_dir=checkpoint_dir,
+                progress=progress,
+            )
+            if batch_names is not None:
+                res.batch = np.asarray(list(batch_names))[np.asarray(res.batch)]
+                for info in res.merge_info:
+                    info.left = [batch_names[i] for i in info.left]
+                    info.right = [batch_names[i] for i in info.right]
+                res.batch_names = list(batch_names)
     res = MNNResult(
         corrected=res.corrected,
         batch=res.batch,

@@ -182,7 +182,8 @@ class _Staging:
 
 
 def device_dense_blocks(
-    csr: CSRCells, block_rows: int = 8192, pad: bool = True, *, device: DeviceLike = None
+    csr: CSRCells, block_rows: int = 8192, pad: bool = True, *, mesh=None,
+    device: DeviceLike = None,
 ) -> Iterator[Tuple[torch.Tensor, int]]:
     """Sparse-transfer counterpart of :func:`dense_blocks`: each block
     travels as its nonzeros' values (fp32), columns (int32) and row offsets
@@ -192,21 +193,35 @@ def device_dense_blocks(
     not added, and the block is bit-identical to the host densify; the flat
     slot index is built in int64 on the device, so no block is too large for
     it. Yields (device block, n_valid); the final block has ``block_rows``
-    rows when ``pad``, else ``n_valid``."""
-    dev = resolve_device(device)
+    rows when ``pad``, else ``n_valid``.
+
+    With ``mesh`` (a ``parallel.mesh.CellsMesh``; its device is used)
+    ``block_rows`` is rounded up to a multiple of the world size, each
+    block's rows split into equal spans by rank, and each rank receives and
+    densifies only its own span's nonzeros: it yields (its rows of the
+    block, how many of them are cells), with ``block_rows / world size``
+    rows when ``pad``."""
     n, g = csr.shape
+    if mesh is not None:
+        dev = mesh.device
+        block_rows = -(-block_rows // mesh.size) * mesh.size
+        rows_each = block_rows // mesh.size
+        spans = [(min(s + mesh.rank * rows_each, n), min(s + (mesh.rank + 1) * rows_each, n))
+                 for s in range(0, n, block_rows)]
+    else:
+        dev = resolve_device(device)
+        rows_each = block_rows
+        spans = [(s, min(s + block_rows, n)) for s in range(0, n, block_rows)]
     ip = np.asarray(csr.indptr)
-    starts = range(0, n, block_rows)
-    nnz_max = max((int(ip[min(s + block_rows, n)] - ip[s]) for s in starts), default=0)
-    stage = _Staging(nnz_max, min(block_rows, n), dev)
-    for start in starts:
-        end = min(start + block_rows, n)
+    nnz_max = max((int(ip[end] - ip[start]) for start, end in spans), default=0)
+    stage = _Staging(nnz_max, min(rows_each, n), dev)
+    for start, end in spans:
         lo, hi = int(ip[start]), int(ip[end])
         vals, cols, ptr = stage.send(csr.data[lo:hi], csr.indices[lo:hi], ip[start:end + 1])
         n_valid = end - start
         rows = torch.repeat_interleave(torch.arange(n_valid, device=dev), ptr.diff(),
                                        output_size=hi - lo)
-        out = torch.zeros(((block_rows if pad else n_valid) * g,), dtype=torch.float32,
+        out = torch.zeros(((rows_each if pad else n_valid) * g,), dtype=torch.float32,
                           device=dev)
         out[rows * g + cols] = vals
         yield out.view(-1, g), n_valid

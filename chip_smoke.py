@@ -123,13 +123,37 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      and
      python -m batchelor_torch import-dense, info and quick-correct in a
      subprocess, its corrected.npy within 1e-6 x max|corrected| of an
-     in-process call with the same HVGs and pair counts.
+     in-process call with the same HVGs and pair counts;
+ 16. the parallel layer over a real NCCL group of one rank (a FileStore
+     under build/, no torchrun; make_cells_mesh(2) must raise):
+     distributed_fast_mnn on BASELINE.md config 4's atlas, 8 x 125,000 x 50
+     (bench.py's shifts 0.3 i, seed 42), k = 20, "exact", in the "gather"
+     and "ring" memory modes (first call, second call, one profiled call
+     with its NCCL kernels' ms), K2 on the launch counter; the gated calls
+     run with deterministic algorithms. Gates: gather, ring and the same
+     call without a process group agree exactly (identical pairs in every
+     step, every row within 1e-4 x its max, lost variance within 1e-5);
+     against reduced_mnn "exact" the same merge order and batches, pair
+     Jaccard >= 0.99 in every step and lost variance within 1e-3 (at 8
+     batches the reference parts from itself as far when its inputs move
+     one ulp up, printed); against reduced_mnn on those moved inputs, and
+     on the 3-batch prefix (375,000 cells) against reduced_mnn, identical
+     pairs in every step, rows within 1e-4 x their max on >= 99.9% and lost
+     variance within 1e-5. Then "auto"
+     (K1, K2 and K3 on the counters, pair Jaccard >= 0.99 against
+     reduced_mnn "auto" in the first step, whose searches both engines
+     run on the same inputs; the run's Jaccard printed); a checkpointed
+     3 x 20,000 run interrupted after
+     its first step and resumed, bit for bit; quick_correct_csr(mesh=) on
+     phase 15's stores against the call without a mesh ("exact"):
+     identical pairs, rows within 1e-4 x their max on >= 99.9%.
 It prints each phase's seconds, the build time, one {"kernels": [...]} line with each kernel's
 launches on each path, times (median of CUDA-event timings), bound and
 library yardstick, one line for each path's seconds, the card's name and
 power limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -801,12 +825,14 @@ def phase_config3_card_vs_cpu(torch, np, bt):
     return out
 
 
-def profiled(torch, fn):
-    """One call of ``fn`` under torch.profiler after a warm-up call: (wall
-    ms, device ms summed over its kernels, memsets and copies, the device's
-    idle share 1 - device / wall, device launches)."""
+def profiled(torch, fn, warm_up=True):
+    """One call of ``fn`` under torch.profiler after a warm-up call (none
+    when the caller just made one): (wall ms, device ms summed over its
+    kernels, memsets and copies, the device's idle share 1 - device / wall,
+    device launches, NCCL kernels' ms)."""
     act = torch.profiler.ProfilerActivity
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -819,7 +845,8 @@ def profiled(torch, fn):
         # timeline, over the kernels they enclose: counting them would count
         # those kernels twice
         if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or evt.name.startswith(("fastmnn/", "quickcorrect/", "quickcsr/"))):
+                or evt.name.startswith(("fastmnn/", "quickcorrect/", "quickcsr/",
+                                        "driver/"))):
             continue
         name = evt.name.replace("(anonymous namespace)::", "").split("(")[0][:60]
         runs, ms = by_name.get(name, (0, 0.0))
@@ -828,6 +855,7 @@ def profiled(torch, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": 1.0 - device_ms / wall_ms,
+            "nccl_ms": sum(ms for k, (_, ms) in by_name.items() if "nccl" in k.lower()),
             "device_launches": sum(runs for runs, _ in by_name.values()),
             "top_kernels": [{"name": k, "launches": r, "ms": m} for k, (r, m) in top]}
 
@@ -1639,6 +1667,266 @@ def phase_outofcore(torch, np, bt, path_kernels, root):
           f"python -m batchelor_torch quick-correct: the same HVGs and pairs ({n_pairs}), "
           f"corrected within 1e-6 x max|corrected| of an in-process call ({cli_err:.3g})")
     line["cli_max_abs_diff_rel"] = cli_err
+    return line, launches, stores
+
+
+PAR_BATCHES = 8                # phase 16: BASELINE.md config 4's atlas,
+PAR_N = 125_000                # 8 x 125,000 = 1,000,000 cells
+PAR_ROWS_MIN = 0.999           # rows within 1e-4 of their max against reduced_mnn
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def compare_runs(torch, np, a, b):
+    """Two MNNResults on the same cells: pairs and pair Jaccard by step, the
+    quantiles 50/99/max of each row's difference over its max |value|,
+    rows beyond 1e-4, lost variance, merge order and batches."""
+    n = a.corrected.shape[0]
+    jac = []
+    for x, y in zip(a.merge_info, b.merge_info):
+        sx, sy = pair_set(x, n), pair_set(y, n)
+        jac.append(np.intersect1d(sx, sy).size / max(1, np.union1d(sx, sy).size))
+    diff = ((a.corrected - b.corrected).abs().amax(1)
+            / b.corrected.abs().amax(1).clamp(min=1e-30)).cpu().numpy()
+    return {"pairs": [int(x.pairs.shape[0]) for x in a.merge_info], "jaccard_by_step": jac,
+            "row_quantiles": [float(q) for q in np.quantile(diff, [0.5, 0.99, 1.0])],
+            "rows_beyond_1e-4": int((diff > 1e-4).sum()),
+            "lost_var_max_diff": max(float(np.abs(x.lost_var - y.lost_var).max())
+                                     for x, y in zip(a.merge_info, b.merge_info)),
+            "merge_order_equal": [(list(x.left), list(x.right)) for x in a.merge_info]
+            == [(list(y.left), list(y.right)) for y in b.merge_info],
+            "batch_equal": bool(np.array_equal(np.asarray(a.batch), np.asarray(b.batch)))}
+
+
+def pair_jaccard(np, a, b, n):
+    """Pair-set Jaccard over every step of two results on n cells."""
+    sa = np.concatenate([pair_set(i, n) for i in a.merge_info])
+    sb = np.concatenate([pair_set(i, n) for i in b.merge_info])
+    return np.intersect1d(sa, sb).size / np.union1d(sa, sb).size
+
+
+def phase_parallel(torch, np, bt, path_kernels, root, stores):
+    """The parallel layer over a real NCCL group of one rank: distributed_fast_mnn
+    on the 1,000,000-cell atlas in both memory modes against reduced_mnn, a
+    checkpoint resumed, quick_correct_csr(mesh=) on phase 15's stores;
+    returns (its line, launches by path)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from batchelor_torch.parallel import distributed_fast_mnn, make_cells_mesh
+
+    n_all = PAR_BATCHES * PAR_N
+    print(f"phase 16: the parallel layer over NCCL at world size 1: distributed_fast_mnn on "
+          f"{PAR_BATCHES} x {PAR_N:,} x {DIMS}, k={K}, gather and ring against reduced_mnn; "
+          "a checkpoint resumed; quick_correct_csr(mesh=)", flush=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(root, "build"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1, timeout=datetime.timedelta(minutes=10))
+    try:
+        mesh = make_cells_mesh()
+        check(mesh.size == 1 and mesh.group is not None and mesh.device.type == "cuda"
+              and "nccl" in str(dist.get_backend(mesh.group)).lower(),
+              f"make_cells_mesh(): world size 1 over NCCL on {mesh.device}")
+        try:
+            make_cells_mesh(2)
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, "make_cells_mesh(2) on a one-card world raises (no CPU fallback)")
+        return _parallel_runs(torch, np, bt, path_kernels, root, stores, mesh, n_all,
+                              distributed_fast_mnn, lambda: make_cells_mesh(1))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _parallel_runs(torch, np, bt, path_kernels, root, stores, mesh, n_all, dfm,
+                   make_local_mesh):
+    rng = np.random.default_rng(SEED)
+    mats = [torch.from_numpy(simulate(rng, PAR_N, DIMS, shift=0.3 * i)).cuda()
+            for i in range(PAR_BATCHES)]
+    torch.cuda.synchronize()
+    line = {"path": f"distributed_fast_mnn {PAR_BATCHES}x{PAR_N}x{DIMS} k={K} NCCL world 1"}
+    launches = {}
+    runs = {}
+    # the gated calls run with deterministic algorithms: index_add_'s atomics
+    # would make two runs differ in their last bits and move near-tied
+    # neighbours (phase 11); the timed calls after them run without
+    for mode in ("gather", "ring"):
+        zero_counts(path_kernels)
+        with deterministic(torch):
+            res, first = sync_time(torch, lambda: dfm(mats, mesh, k=K, memory=mode))
+        launches[f"distributed_fast_mnn_{mode}_exact"] = read_counts(path_kernels)
+        _, second = sync_time(torch, lambda: dfm(mats, mesh, k=K, memory=mode))
+        prof = profiled(torch, lambda: dfm(mats, mesh, k=K, memory=mode), warm_up=False)
+        runs[mode] = res
+        line[mode] = {"seconds_first": first, "seconds_second": second, "profiled": prof,
+                      "launches": launches[f"distributed_fast_mnn_{mode}_exact"]}
+        print(f"  '{mode}', 'exact': first call (deterministic) {first:.3f} s, second "
+              f"{second:.3f} s; "
+              f"launches {launches[f'distributed_fast_mnn_{mode}_exact']}; "
+              f"NCCL kernels {prof['nccl_ms']:.3f} ms", flush=True)
+        print_profile(prof, f"'{mode}'")
+    with deterministic(torch):
+        ref, ref_s = sync_time(torch, lambda: bt.reduced_mnn(mats, k=K, knn_method="exact"))
+    line["reduced_mnn_exact_seconds"] = ref_s
+    print(f"  reduced_mnn 'exact': {ref_s:.3f} s", flush=True)
+    gather, ring = runs["gather"], runs["ring"]
+    for mode in ("gather", "ring"):
+        check(launches[f"distributed_fast_mnn_{mode}_exact"]["topk_rows"] > 0,
+              f"'{mode}': K2 ran on the exact path")
+    check(all(tuple(r.corrected.shape) == (n_all, DIMS) and bool(torch.isfinite(r.corrected).all())
+              for r in (gather, ring)), f"corrected finite, ({n_all}, {DIMS}), both modes")
+    with deterministic(torch):
+        # the same code without any process group, and the reference on
+        # inputs moved one ulp up: how far the reference moves by itself
+        no_group = dfm(mats, make_local_mesh(), k=K)
+        moved = [torch.nextafter(m, torch.full_like(m, float("inf"))) for m in mats]
+        ref_ulp = bt.reduced_mnn(moved, k=K, knn_method="exact")
+        del moved
+    # every comparison is read before any is gated
+    cmp = {}
+    for a_name, a, b_name, b in (("gather", gather, "ring", ring),
+                                 ("gather", gather, "no_group", no_group),
+                                 ("gather", gather, "reduced_mnn", ref),
+                                 ("ring", ring, "reduced_mnn", ref),
+                                 ("reduced_mnn_one_ulp_up", ref_ulp, "reduced_mnn", ref),
+                                 ("gather", gather, "reduced_mnn_one_ulp_up", ref_ulp)):
+        cmp[f"{a_name}_vs_{b_name}"] = c = compare_runs(torch, np, a, b)
+        print(f"  {a_name} vs {b_name}: pairs by step {c['pairs']}, Jaccard "
+              f"{[round(j, 6) for j in c['jaccard_by_step']]}; row diff / row max, quantiles "
+              f"50/99/max {c['row_quantiles']}; {c['rows_beyond_1e-4']} of {n_all} rows "
+              f"beyond 1e-4; lost_var within {c['lost_var_max_diff']:.3g}", flush=True)
+    line["comparisons"] = cmp
+    for name, c in cmp.items():
+        check(c["merge_order_equal"] and c["batch_equal"],
+              f"{name}: the same merge order and batches")
+    for name in ("gather_vs_ring", "gather_vs_no_group"):
+        c = cmp[name]
+        check(all(j == 1.0 for j in c["jaccard_by_step"]) and c["rows_beyond_1e-4"] == 0
+              and c["lost_var_max_diff"] <= 1e-5,
+              f"{name}: identical pairs in every step, every row within 1e-4 x its max, "
+              "lost variance within 1e-5")
+    # at 8 batches reduced_mnn sits on a knife-edge of these inputs: moved
+    # one ulp it parts from itself as far as the parallel layer parts from
+    # it, and the parallel layer agrees with the moved reference as closely
+    # as with the reference on the 3-batch prefix below (readings, PERF.md)
+    for name in ("gather_vs_reduced_mnn", "ring_vs_reduced_mnn"):
+        c = cmp[name]
+        check(min(c["jaccard_by_step"]) >= 0.99 and c["lost_var_max_diff"] <= 1e-3,
+              f"{name}: pair Jaccard >= 0.99 in every step "
+              f"({min(c['jaccard_by_step']):.5f}), lost variance within 1e-3")
+    c = cmp["gather_vs_reduced_mnn_one_ulp_up"]
+    check(all(j == 1.0 for j in c["jaccard_by_step"])
+          and c["rows_beyond_1e-4"] <= (1 - PAR_ROWS_MIN) * n_all
+          and c["lost_var_max_diff"] <= 1e-5,
+          f"gather vs reduced_mnn one ulp up: identical pairs in every step, rows within "
+          f"1e-4 x their max on >= 99.9% ({c['rows_beyond_1e-4']} beyond), lost variance "
+          f"within 1e-5 ({c['lost_var_max_diff']:.3g})")
+    with deterministic(torch):
+        three = dfm(mats[:3], mesh, k=K)
+        three_ring = dfm(mats[:3], mesh, k=K, memory="ring")
+        three_ref = bt.reduced_mnn(mats[:3], k=K, knn_method="exact")
+    n3 = 3 * PAR_N
+    for name, a in (("gather", three), ("ring", three_ring)):
+        c = compare_runs(torch, np, a, three_ref)
+        cmp[f"3_batches_{name}_vs_reduced_mnn"] = c
+        check(c["merge_order_equal"] and c["batch_equal"]
+              and all(j == 1.0 for j in c["jaccard_by_step"])
+              and c["rows_beyond_1e-4"] <= (1 - PAR_ROWS_MIN) * n3
+              and c["lost_var_max_diff"] <= 1e-5,
+              f"3 x {PAR_N:,}, {name} vs reduced_mnn: identical pairs in both steps "
+              f"{c['pairs']}, rows within 1e-4 x their max on >= 99.9% "
+              f"({c['rows_beyond_1e-4']} beyond: near-tied tricube neighbours, phase 9), "
+              f"lost variance within 1e-5 ({c['lost_var_max_diff']:.3g})")
+    del three, three_ring, three_ref, no_group, ref_ulp
+    del ring, runs
+
+    # "auto": the two-pass search on the per-rank searches
+    zero_counts(path_kernels)
+    auto, auto_s = sync_time(torch, lambda: dfm(mats, mesh, k=K, knn_method="auto"))
+    launches["distributed_fast_mnn_gather_auto"] = read_counts(path_kernels)
+    check(all(v > 0 for v in launches["distributed_fast_mnn_gather_auto"].values()),
+          f"'auto': K1, K2 and K3 ran: {launches['distributed_fast_mnn_gather_auto']}")
+    _, auto_s2 = sync_time(torch, lambda: dfm(mats, mesh, k=K, knn_method="auto"))
+    auto_prof = profiled(torch, lambda: dfm(mats, mesh, k=K, knn_method="auto"), warm_up=False)
+    print_profile(auto_prof, "'gather' 'auto'")
+    ref_auto = bt.reduced_mnn(mats, k=K, knn_method="auto")
+    jac = pair_jaccard(np, auto, ref_auto, n_all)
+    c = compare_runs(torch, np, auto, ref_auto)
+    print(f"  'auto': first call {auto_s:.3f} s, second {auto_s2:.3f} s; pair Jaccard "
+          f"against reduced_mnn 'auto' {jac:.6f} over the run, by step "
+          f"{[round(j, 6) for j in c['jaccard_by_step']]}", flush=True)
+    # the first step's searches get the same inputs on both sides, and both
+    # select in bf16; from there the tricube searches part (the compact
+    # involved set against the masked whole set: other sub-chunks for bf16
+    # to choose among), so the later steps start from other coordinates
+    check(c["jaccard_by_step"][0] >= 0.99,
+          f"'auto' first step's pairs vs reduced_mnn 'auto': Jaccard "
+          f"{c['jaccard_by_step'][0]:.5f} >= 0.99")
+    line["gather_auto"] = {"seconds_first": auto_s, "seconds_second": auto_s2,
+                           "profiled": auto_prof, "pair_jaccard_vs_reduced_mnn_auto": jac,
+                           "vs_reduced_mnn_auto": c,
+                           "launches": launches["distributed_fast_mnn_gather_auto"]}
+    del mats, auto, ref_auto, ref, gather
+
+    # checkpoints: an interrupted 3-batch run resumed, bit for bit
+    rng = np.random.default_rng(SEED)
+    small = [torch.from_numpy(simulate(rng, CKPT_N, DIMS, shift=0.4 * i)).cuda()
+             for i in range(3)]
+    ck_full = os.path.join(root, "build", "chip_smoke_dist_full")
+    ck = os.path.join(root, "build", "chip_smoke_dist_ckpt")
+    for d in (ck_full, ck):
+        shutil.rmtree(d, ignore_errors=True)
+    with deterministic(torch):
+        full = dfm(small, mesh, k=K, checkpoint_dir=ck_full)
+        dfm(small, mesh, k=K, checkpoint_dir=ck)
+        meta_path = os.path.join(ck, "merge_meta.json")
+        with open(meta_path) as fh:
+            meta = json.load(fh)
+        for name in ("step_0001.npz", "step_0001_data.npy"):
+            os.remove(os.path.join(ck, name))
+        meta["completed"] = 1
+        with open(meta_path, "w") as fh:
+            json.dump(meta, fh)
+        resumed, resumed_s = sync_time(torch, lambda: dfm(small, mesh, k=K, checkpoint_dir=ck))
+    for d in (ck_full, ck):
+        shutil.rmtree(d, ignore_errors=True)
+    check(torch.equal(resumed.corrected, full.corrected)
+          and all(np.array_equal(a.pairs, b.pairs) and a.batch_size == b.batch_size
+                  and np.array_equal(a.lost_var, b.lost_var)
+                  for a, b in zip(resumed.merge_info, full.merge_info)),
+          f"3 x {CKPT_N:,} checkpointed, interrupted after step 1, resumed: bit for bit "
+          f"the uninterrupted run ({resumed_s:.3f} s)")
+    line["checkpoint_resumed_seconds"] = resumed_s
+
+    # out of core: quick_correct_csr with the mesh on phase 15's stores
+    qkw = dict(hvg_n=HVG_N, d=DIMS, k=K, knn_method="exact", min_mean=UMI_MIN_MEAN)
+    with deterministic(torch):
+        single, single_s = sync_time(torch, lambda: bt.quick_correct_csr(stores, **qkw))
+        meshed, mesh_s = sync_time(torch, lambda: bt.quick_correct_csr(stores, mesh=mesh, **qkw))
+    n_ooc = sum(s.n_cells for s in stores)
+    c = compare_runs(torch, np, meshed.corrected, single.corrected)
+    print(f"  quick_correct_csr(mesh=): {mesh_s:.3f} s, without a mesh {single_s:.3f} s; pairs "
+          f"{c['pairs']}, Jaccard {c['jaccard_by_step']}; {c['rows_beyond_1e-4']} of {n_ooc} "
+          f"rows beyond 1e-4 x their max (quantiles 50/99/max {c['row_quantiles']})",
+          flush=True)
+    check(np.array_equal(meshed.hvgs, single.hvgs) and all(j == 1.0 for j in c["jaccard_by_step"]),
+          "quick_correct_csr(mesh=): the same HVGs and identical pairs as without a mesh")
+    check(c["rows_beyond_1e-4"] <= (1 - PAR_ROWS_MIN) * n_ooc,
+          f"quick_correct_csr(mesh=): rows within 1e-4 x their max on >= 99.9% "
+          f"({c['rows_beyond_1e-4']} beyond)")
+    line["quick_correct_csr_mesh"] = {"seconds": mesh_s, "seconds_without_mesh": single_s, **c}
     return line, launches
 
 
@@ -1701,7 +1989,11 @@ def main():
     cluster_line, labels, cluster_launches = timed(13, phase_cluster, torch, np, bt, path_kernels)
     engines_line = timed(14, phase_engines, torch, np, bt, qc, counts, labels)
     del qc, counts, labels
-    ooc_line, ooc_launches = timed(15, phase_outofcore, torch, np, bt, path_kernels, root)
+    ooc_line, ooc_launches, stores = timed(15, phase_outofcore, torch, np, bt, path_kernels,
+                                           root)
+    par_line, par_launches = timed(16, phase_parallel, torch, np, bt, path_kernels, root,
+                                   stores)
+    del stores
 
     for entry in (k1, k2, k3):
         entry["launches"] = launches[entry["name"]]
@@ -1715,7 +2007,8 @@ def main():
             "quick_correct": qc_launches[entry["name"]],
             "cluster_mnn": cluster_launches[entry["name"]],
             **{path: ooc_launches[path][entry["name"]]
-               for path in ("quick_correct_csr", "cluster_mnn_csr", "mnn_correct_csr")}}
+               for path in ("quick_correct_csr", "cluster_mnn_csr", "mnn_correct_csr")},
+            **{path: counts[entry["name"]] for path, counts in par_launches.items()}}
     k4["launches_by_path"] = {"pass1_precision_probe": k4["launches"]}
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(json.dumps({"main_path": "reduced_mnn 2x100000x50 k=20 auto",
@@ -1734,6 +2027,7 @@ def main():
     print(json.dumps(cluster_line), flush=True)
     print(json.dumps(engines_line), flush=True)
     print(json.dumps(ooc_line), flush=True)
+    print(json.dumps(par_line), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -30,9 +30,9 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The JAX package's exports that wait for the port's multi-device slice
-# (ROADMAP Queue 1 item 10).
-STILL_TO_PORT = ["distributed_fast_mnn", "make_cells_mesh"]
+# The JAX package's exports that the port does not have yet: none since the
+# parallel layer (ROADMAP Queue 1 item 10).
+STILL_TO_PORT = []
 
 
 def _np(x):

@@ -636,3 +636,38 @@ def test_quick_correct_csr_card_matches_cpu(card):
     want = _gene_space(cpu.corrected)
     err = (_gene_space(gpu.corrected) - want).abs().max()
     assert float(err) <= 1e-4 * float(want.abs().max())
+
+
+def test_distributed_fast_mnn_nccl_world_of_one_matches_reduced_mnn(card, tmp_path):
+    """The parallel layer over a real NCCL group of one rank (each
+    collective a local copy on the card), gather and ring modes, against
+    reduced_mnn on the same card: identical pairs in every step."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from batchelor_torch import reduced_mnn
+    from batchelor_torch.parallel import distributed_fast_mnn, make_cells_mesh
+
+    rng = np.random.default_rng(11)
+    mats = [torch.from_numpy((rng.normal(size=(3000, 20)) + 0.5 * i).astype(np.float32)).cuda()
+            for i in range(3)]
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_cells_mesh()
+        assert mesh.group is not None and mesh.size == 1 and mesh.device.type == "cuda"
+        with pytest.raises(ValueError):
+            make_cells_mesh(2)
+        ref = reduced_mnn(mats, k=15, knn_method="exact")
+        for memory in ("gather", "ring"):
+            res = distributed_fast_mnn(mats, mesh, k=15, memory=memory)
+            assert res.corrected.device.type == "cuda"
+            assert bool(torch.isfinite(res.corrected).all())
+            for a, b in zip(res.merge_info, ref.merge_info):
+                assert np.array_equal(np.unique(a.pairs, axis=0), np.unique(b.pairs, axis=0))
+            rows = (res.corrected - ref.corrected).abs().amax(1)
+            scale = ref.corrected.abs().amax(1)
+            assert int((rows > 1e-4 * scale).sum()) <= len(rows) // 1000
+    finally:
+        dist.destroy_process_group()

@@ -1,8 +1,8 @@
 """The port's CSR stores, block streamers, out-of-core PCA and
 ``quick_correct_csr`` against the JAX package's, on the CPU.
 
-Covers tests/test_io.py except its two mesh cases (the port's multi-device
-layer is not ported yet) and its merge-checkpoint cases, which
+Covers tests/test_io.py except its two mesh cases (held against JAX in
+tests/test_torch_parallel_outofcore.py) and its merge-checkpoint cases, which
 tests/test_torch_checkpoint.py holds against JAX. Inputs are made with numpy
 from a seed; both packages get the same arrays. What is compared, and how
 closely:

@@ -1,8 +1,8 @@
 """The port's gene-space corrections over CSR stores against the JAX
 package's, on the CPU.
 
-Covers tests/test_sparse_gene_space.py except its mesh case (the port's
-multi-device layer is not ported yet), the three CSR tests of
+Covers tests/test_sparse_gene_space.py except its mesh case (held against
+JAX in tests/test_torch_parallel_outofcore.py), the three CSR tests of
 tests/test_cluster_mnn.py and the CSR half of
 tests/test_diagnostics_api.py::test_blocked_delta_variance_matches_dense.
 Each runs the batchelor_tpu function and its batchelor_torch counterpart

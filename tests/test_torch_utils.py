@@ -35,7 +35,9 @@ def test_no_jax_in_the_port():
         "new = ['ops.cosine_norm', 'ops.pca', 'ops.lowrank', 'ops.rescore_cuda', 'ops.pass1_cuda',\n"
         "       'ops.residual', 'ops.normalization', 'ops.stats', 'correct.diagnostics',\n"
         "       'correct.linear', 'correct.cluster_mnn', 'correct.dispatch', 'correct.experiments',\n"
-        "       'native.bindings', 'io.csr', 'ops.pca_outofcore', 'correct.outofcore', '__main__']\n"
+        "       'native.bindings', 'io.csr', 'ops.pca_outofcore', 'correct.outofcore', '__main__',\n"
+        "       'parallel', 'parallel.mesh', 'parallel.distributed', 'parallel.ring',\n"
+        "       'parallel.driver', 'parallel.multihost']\n"
         "assert all('batchelor_torch.' + m in sys.modules for m in new)\n"
         "print('ok', len([m for m in sys.modules if m.startswith('batchelor_torch')]))\n"
     )
@@ -78,7 +80,8 @@ def test_entry_points_default_to_cuda(monkeypatch, rng):
                  lambda: bt.regress_batches_csr(stores),
                  lambda: bt.mnn_correct_csr(stores),
                  lambda: bt.cluster_mnn_csr(stores, clusters=[labels[:20], labels[20:]]),
-                 lambda: bt.mnn_delta_variance_blocked(stores, pairs)):
+                 lambda: bt.mnn_delta_variance_blocked(stores, pairs),
+                 lambda: bt.make_cells_mesh()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert device.resolve_device("cpu") == torch.device("cpu")
