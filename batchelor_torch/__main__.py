@@ -14,7 +14,9 @@ flags and output files, plus ``--device`` (default ``cuda``; ``cpu`` runs
 without a card). Inputs are CSRCells stores (``io/csr.py``); ``import-dense``
 converts a .npy (cells x genes) matrix. Outputs: corrected.npy (with
 rotation.npy and centers.npy for fastMNN), batch.npy, hvgs.npy
-(quick-correct), merge_info.json, metrics.json.
+(quick-correct), merge_info.json, metrics.json (per span name its count,
+host wall seconds and, on the card, ``device_ms`` from CUDA events; the
+counters; every span's record on the host's wall clock).
 """
 from __future__ import annotations
 
@@ -111,7 +113,7 @@ def _cmd_correct(args):
         "none": NoCorrectParams,
     }[args.method]()
 
-    rec = MetricsRecorder()
+    rec = MetricsRecorder(device_time=True)
     with rec.activate():
         res = batch_correct(mats, subset_row=subset, correct_all=args.correct_all,
                             params=params, device=dev)
@@ -135,7 +137,7 @@ def _cmd_quick_correct(args):
     from .utils.telemetry import MetricsRecorder
 
     stores = [CSRCells.load(p) for p in args.input]
-    rec = MetricsRecorder()
+    rec = MetricsRecorder(device_time=True)
     with rec.activate():
         out = quick_correct_csr(stores, hvg_n=args.hvgs, d=args.d, k=args.k,
                                 knn_method=args.knn, block_rows=args.block_rows,

@@ -175,160 +175,162 @@ def _fast_mnn_core(
     final_node: Optional[MergeNode] = None
 
     for mdx in range(nmerges):
-        # Resume path: replay a completed step from the checkpoint store
-        # without recomputation.
-        if checkpointer is not None and mdx < checkpointer.completed_steps:
-            tree_path, chosen, merged, diag = checkpointer.load_step(
-                mdx, batches[0].device)
-            left_sets[mdx] = diag["left_set"]
-            right_sets[mdx] = diag["right_set"]
-            raw_pairs[mdx] = diag["pairs"]
-            batch_size[mdx] = diag["batch_size"]
-            skipped[mdx] = diag["skipped"]
-            var_kept[mdx] = 1.0 - diag["lost_var"]
+        with trace_span("fastmnn/step", step=mdx):
+            # Resume path: replay a completed step from the checkpoint store
+            # without recomputation.
+            if checkpointer is not None and mdx < checkpointer.completed_steps:
+                tree_path, chosen, merged, diag = checkpointer.load_step(
+                    mdx, batches[0].device)
+                left_sets[mdx] = diag["left_set"]
+                right_sets[mdx] = diag["right_set"]
+                raw_pairs[mdx] = diag["pairs"]
+                batch_size[mdx] = diag["batch_size"]
+                skipped[mdx] = diag["skipped"]
+                var_kept[mdx] = 1.0 - diag["lost_var"]
+                if not auto_merge:
+                    # the walk must address the same subtree and the same batch
+                    # sets as when the checkpoint was written
+                    cur_left, cur_right, expect_path = get_next_merge(tree)
+                    if (
+                        expect_path != tree_path
+                        or list(cur_left.index) != list(diag["left_set"])
+                        or list(cur_right.index) != list(diag["right_set"])
+                    ):
+                        raise ValueError("checkpoint does not match this merge tree")
+                    tree = update_tree(tree, tree_path, merged)
+                    if not isinstance(tree, list):
+                        final_node = tree
+                else:
+                    li, ri = chosen
+                    keep = [x for t, x in enumerate(remainders) if t not in (li, ri)]
+                    remainders = keep + [merged]
+                    stats = diag["stats"]
+                    if len(remainders) == 1:
+                        final_node = merged
+                continue
+
             if not auto_merge:
-                # the walk must address the same subtree and the same batch
-                # sets as when the checkpoint was written
-                cur_left, cur_right, expect_path = get_next_merge(tree)
-                if (
-                    expect_path != tree_path
-                    or list(cur_left.index) != list(diag["left_set"])
-                    or list(cur_right.index) != list(diag["right_set"])
-                ):
-                    raise ValueError("checkpoint does not match this merge tree")
-                tree = update_tree(tree, tree_path, merged)
+                left, right, path = get_next_merge(tree)
+            else:
+                li, ri = _pick_best_merge(stats)
+                left, right = remainders[li], remainders[ri]
+
+            left_old = per_batch_var(left.data, left.index, left.origin)
+            right_old = per_batch_var(right.data, right.index, right.origin)
+            left_sets[mdx] = list(left.index)
+            right_sets[mdx] = list(right.index)
+
+            # Replay earlier batch vectors on the opposite side before MNN search
+            # (reference R/fastMNN.R:472-474).
+            with trace_span("fastmnn/orthogonalize", step=mdx):
+                right_data = orthogonalize_other(right.data, right.restrict, left.extras)
+                left_data = orthogonalize_other(left.data, left.restrict, right.extras)
+
+            with trace_span("fastmnn/mnn_search", step=mdx):
+                pairs = restricted_mnn(
+                    left_data, left.restrict, right_data, right.restrict,
+                    k=k, prop_k=prop_k, method=knn_method, device=left_data.device,
+                )
+            if pairs.first.shape[0] == 0:
+                raise ValueError(
+                    f"no MNN pairs found at merge step {mdx}; increase k or check inputs"
+                )
+
+            averaged, _second = average_correction(left_data, pairs.first,
+                                                   right_data, pairs.second)
+            overall = averaged.mean(0)
+
+            # batch.size is always reported (reference R/fastMNN.R:484-492);
+            # min.batch.skip only gates the skip decision, and the scalar only
+            # crosses to the host when that gate can fire.
+            mag_dev = batch_magnitude(averaged)
+            do_correct = True
+            if min_batch_skip is not None and min_batch_skip > 0.0:
+                mag = float(mag_dev)
+                batch_size[mdx] = mag
+                if mag < min_batch_skip:
+                    do_correct = False
+                    skipped[mdx] = True
+            else:
+                batch_size[mdx] = mag_dev
+
+            if do_correct:
+                with trace_span("fastmnn/correct", step=mdx):
+                    left_data = center_along_batch_vector(left_data, overall, left.restrict)
+                    right_data = center_along_batch_vector(right_data, overall, right.restrict)
+                    left_new = per_batch_var(left_data, left.index, left.origin)
+                    right_new = per_batch_var(right_data, right.index, right.origin)
+                    to_add = [overall]
+                    re_avg, second = average_correction(
+                        left_data, pairs.first, right_data, pairs.second
+                    )
+                    right_data = tricube_weighted_correction(
+                        right_data,
+                        re_avg,
+                        second,
+                        k=choose_k(k, prop_k, right_data.shape[0]),
+                        ndist=ndist,
+                    )
+            else:
+                to_add = []
+                left_new = per_batch_var(left_data, left.index, left.origin)
+                right_new = per_batch_var(right_data, right.index, right.origin)
+
+            with np.errstate(invalid="ignore", divide="ignore"):
+                var_kept[mdx, left.index] = left_new / left_old
+                var_kept[mdx, right.index] = right_new / right_old
+            raw_pairs[mdx] = np.stack([pairs.first, pairs.second], axis=1)
+            rec = get_recorder()
+            if rec is not None:
+                rec.add("merge_steps")
+                rec.add("mnn_pairs", float(pairs.first.shape[0]))
+                rec.add("cells_merged", float(left.data.shape[0] + right.data.shape[0]))
+
+            merged = MergeNode(
+                index=list(left.index) + list(right.index),
+                data=torch.cat([left_data, right_data], 0),
+                restrict=combine_restrict(
+                    left_data.shape[0], left.restrict, right_data.shape[0], right.restrict
+                ),
+                origin=np.concatenate([left.origin, right.origin]),
+                extras=list(left.extras) + list(right.extras) + to_add,
+            )
+
+            if not auto_merge:
+                tree = update_tree(tree, path, merged)
                 if not isinstance(tree, list):
                     final_node = tree
             else:
-                li, ri = chosen
                 keep = [x for t, x in enumerate(remainders) if t not in (li, ri)]
+                kept_idx = [t for t in range(len(remainders)) if t not in (li, ri)]
+                old = stats[np.ix_(kept_idx, kept_idx)]
+                new_counts = [
+                    _count_pairs(merged, other, k, prop_k, orthogonalize=True) for other in keep
+                ]
+                n_new = len(keep) + 1
+                stats = np.zeros((n_new, n_new), dtype=np.int64)
+                stats[: len(keep), : len(keep)] = old
+                stats[len(keep), : len(keep)] = np.asarray(new_counts, dtype=np.int64)
                 remainders = keep + [merged]
-                stats = diag["stats"]
                 if len(remainders) == 1:
                     final_node = merged
-            continue
 
-        if not auto_merge:
-            left, right, path = get_next_merge(tree)
-        else:
-            li, ri = _pick_best_merge(stats)
-            left, right = remainders[li], remainders[ri]
-
-        left_old = per_batch_var(left.data, left.index, left.origin)
-        right_old = per_batch_var(right.data, right.index, right.origin)
-        left_sets[mdx] = list(left.index)
-        right_sets[mdx] = list(right.index)
-
-        # Replay earlier batch vectors on the opposite side before MNN search
-        # (reference R/fastMNN.R:472-474).
-        with trace_span("fastmnn/orthogonalize", step=mdx):
-            right_data = orthogonalize_other(right.data, right.restrict, left.extras)
-            left_data = orthogonalize_other(left.data, left.restrict, right.extras)
-
-        with trace_span("fastmnn/mnn_search", step=mdx):
-            pairs = restricted_mnn(
-                left_data, left.restrict, right_data, right.restrict,
-                k=k, prop_k=prop_k, method=knn_method, device=left_data.device,
-            )
-        if pairs.first.shape[0] == 0:
-            raise ValueError(
-                f"no MNN pairs found at merge step {mdx}; increase k or check inputs"
-            )
-
-        averaged, _second = average_correction(left_data, pairs.first, right_data, pairs.second)
-        overall = averaged.mean(0)
-
-        # batch.size is always reported (reference R/fastMNN.R:484-492);
-        # min.batch.skip only gates the skip decision, and the scalar only
-        # crosses to the host when that gate can fire.
-        mag_dev = batch_magnitude(averaged)
-        do_correct = True
-        if min_batch_skip is not None and min_batch_skip > 0.0:
-            mag = float(mag_dev)
-            batch_size[mdx] = mag
-            if mag < min_batch_skip:
-                do_correct = False
-                skipped[mdx] = True
-        else:
-            batch_size[mdx] = mag_dev
-
-        if do_correct:
-            with trace_span("fastmnn/correct", step=mdx):
-                left_data = center_along_batch_vector(left_data, overall, left.restrict)
-                right_data = center_along_batch_vector(right_data, overall, right.restrict)
-                left_new = per_batch_var(left_data, left.index, left.origin)
-                right_new = per_batch_var(right_data, right.index, right.origin)
-                to_add = [overall]
-                re_avg, second = average_correction(
-                    left_data, pairs.first, right_data, pairs.second
+            if checkpointer is not None:
+                checkpointer.save_step(
+                    mdx,
+                    path if not auto_merge else None,
+                    None if not auto_merge else [li, ri],
+                    merged,
+                    {
+                        "pairs": raw_pairs[mdx],
+                        "lost_var": 1.0 - var_kept[mdx],
+                        "left_set": left_sets[mdx],
+                        "right_set": right_sets[mdx],
+                        "batch_size": float(batch_size[mdx]),
+                        "skipped": bool(skipped[mdx]),
+                        "stats": stats if auto_merge else None,
+                    },
                 )
-                right_data = tricube_weighted_correction(
-                    right_data,
-                    re_avg,
-                    second,
-                    k=choose_k(k, prop_k, right_data.shape[0]),
-                    ndist=ndist,
-                )
-        else:
-            to_add = []
-            left_new = per_batch_var(left_data, left.index, left.origin)
-            right_new = per_batch_var(right_data, right.index, right.origin)
-
-        with np.errstate(invalid="ignore", divide="ignore"):
-            var_kept[mdx, left.index] = left_new / left_old
-            var_kept[mdx, right.index] = right_new / right_old
-        raw_pairs[mdx] = np.stack([pairs.first, pairs.second], axis=1)
-        rec = get_recorder()
-        if rec is not None:
-            rec.add("merge_steps")
-            rec.add("mnn_pairs", float(pairs.first.shape[0]))
-            rec.add("cells_merged", float(left.data.shape[0] + right.data.shape[0]))
-
-        merged = MergeNode(
-            index=list(left.index) + list(right.index),
-            data=torch.cat([left_data, right_data], 0),
-            restrict=combine_restrict(
-                left_data.shape[0], left.restrict, right_data.shape[0], right.restrict
-            ),
-            origin=np.concatenate([left.origin, right.origin]),
-            extras=list(left.extras) + list(right.extras) + to_add,
-        )
-
-        if not auto_merge:
-            tree = update_tree(tree, path, merged)
-            if not isinstance(tree, list):
-                final_node = tree
-        else:
-            keep = [x for t, x in enumerate(remainders) if t not in (li, ri)]
-            kept_idx = [t for t in range(len(remainders)) if t not in (li, ri)]
-            old = stats[np.ix_(kept_idx, kept_idx)]
-            new_counts = [
-                _count_pairs(merged, other, k, prop_k, orthogonalize=True) for other in keep
-            ]
-            n_new = len(keep) + 1
-            stats = np.zeros((n_new, n_new), dtype=np.int64)
-            stats[: len(keep), : len(keep)] = old
-            stats[len(keep), : len(keep)] = np.asarray(new_counts, dtype=np.int64)
-            remainders = keep + [merged]
-            if len(remainders) == 1:
-                final_node = merged
-
-        if checkpointer is not None:
-            checkpointer.save_step(
-                mdx,
-                path if not auto_merge else None,
-                None if not auto_merge else [li, ri],
-                merged,
-                {
-                    "pairs": raw_pairs[mdx],
-                    "lost_var": 1.0 - var_kept[mdx],
-                    "left_set": left_sets[mdx],
-                    "right_set": right_sets[mdx],
-                    "batch_size": float(batch_size[mdx]),
-                    "skipped": bool(skipped[mdx]),
-                    "stats": stats if auto_merge else None,
-                },
-            )
 
     assert final_node is not None
     full_data = final_node.data
@@ -416,41 +418,42 @@ def reduced_mnn(
     each merge step there and resume from the steps it already holds
     (``io/checkpoint.py``; the JAX package's format).
     """
-    dev = resolve_device(device)
-    opts = dict(k=k, prop_k=prop_k, ndist=ndist, merge_order=merge_order,
-                auto_merge=auto_merge, min_batch_skip=min_batch_skip,
-                checkpoint_dir=checkpoint_dir, knn_method=knn_method)
-    if isinstance(batches_or_single, (list, tuple)):
-        batches = [as_tensor(b, dev) for b in batches_or_single]
-        check_batch_consistency(batches, cells_in_rows=True)
-        restrict = check_restrictions(batches, restrict, cells_in_rows=True)
-        out = _fast_mnn_core(batches, restrict, batch_names=batch_names, **opts)
-        if cell_names is not None:
-            out.cell_names = generate_cell_names(
-                cell_names, [b.shape[0] for b in batches]
-            )
-        return out
+    with trace_span("fastmnn/call", entry="reduced_mnn"):
+        dev = resolve_device(device)
+        opts = dict(k=k, prop_k=prop_k, ndist=ndist, merge_order=merge_order,
+                    auto_merge=auto_merge, min_batch_skip=min_batch_skip,
+                    checkpoint_dir=checkpoint_dir, knn_method=knn_method)
+        if isinstance(batches_or_single, (list, tuple)):
+            batches = [as_tensor(b, dev) for b in batches_or_single]
+            check_batch_consistency(batches, cells_in_rows=True)
+            restrict = check_restrictions(batches, restrict, cells_in_rows=True)
+            out = _fast_mnn_core(batches, restrict, batch_names=batch_names, **opts)
+            if cell_names is not None:
+                out.cell_names = generate_cell_names(
+                    cell_names, [b.shape[0] for b in batches]
+                )
+            return out
 
-    x = as_tensor(batches_or_single, dev)
-    divided = divide_into_batches(
-        np.arange(x.shape[0]), batch, cells_in_rows=True, restrict=restrict
-    )
-    out = _fast_mnn_core(
-        [x[as_tensor(idx, dev, torch.long)] for idx in divided.batches],
-        divided.restricted,
-        batch_names=[str(n) for n in divided.names],
-        **opts,
-    )
-    reo = divided.reorder
-    out.corrected = out.corrected[as_tensor(reo, dev, torch.long)]
-    out.batch = out.batch[reo]
-    new_pairs = reindex_pairings([i.pairs for i in out.merge_info], reo)
-    for info, p in zip(out.merge_info, new_pairs):
-        info.pairs = p
-    if cell_names is not None:
-        # single input: output is input cell order, names pass through
-        out.cell_names = np.asarray(cell_names, dtype=object)
-    return out
+        x = as_tensor(batches_or_single, dev)
+        divided = divide_into_batches(
+            np.arange(x.shape[0]), batch, cells_in_rows=True, restrict=restrict
+        )
+        out = _fast_mnn_core(
+            [x[as_tensor(idx, dev, torch.long)] for idx in divided.batches],
+            divided.restricted,
+            batch_names=[str(n) for n in divided.names],
+            **opts,
+        )
+        reo = divided.reorder
+        out.corrected = out.corrected[as_tensor(reo, dev, torch.long)]
+        out.batch = out.batch[reo]
+        new_pairs = reindex_pairings([i.pairs for i in out.merge_info], reo)
+        for info, p in zip(out.merge_info, new_pairs):
+            info.pairs = p
+        if cell_names is not None:
+            # single input: output is input cell order, names pass through
+            out.cell_names = np.asarray(cell_names, dtype=object)
+        return out
 
 
 def fast_mnn(
@@ -493,81 +496,82 @@ def fast_mnn(
     ``correct_all``). ``checkpoint_dir``: save each merge step there and
     resume from the steps it already holds, as ``reduced_mnn`` does.
     """
-    dev = resolve_device(device)
-    single = not isinstance(batches_or_single, (list, tuple))
-    if single:
-        x = as_tensor(batches_or_single, dev)
-        if batch is None:
-            raise ValueError("'batch' must be specified for a single input matrix")
-        divided = divide_into_batches(
-            np.arange(x.shape[0]), batch, cells_in_rows=True, restrict=restrict
-        )
-        batches = [x[as_tensor(idx, dev, torch.long)] for idx in divided.batches]
-        restrict = divided.restricted
-        if batch_names is None:
-            batch_names = [str(n) for n in divided.names]
-    else:
-        batches = [as_tensor(b, dev) for b in batches_or_single]
-        if len(batches) < 2:
-            raise ValueError("at least two batches must be specified")
-        check_batch_consistency(batches, cells_in_rows=True)
-        restrict = check_restrictions(batches, restrict, cells_in_rows=True)
-
-    # Cosine norm: L2 computed on the gene subset, applied to the full
-    # matrix; PCA handles subsetting (reference R/fastMNN.R:348-354, 371-377).
-    if cos_norm:
-        with trace_span("fastmnn/cosine_norm"):
-            l2s = [cosine_norm(b, mode="l2norm", subset_row=subset_row) for b in batches]
-            batches = [apply_cosine_norm(b, l2) for b, l2 in zip(batches, l2s)]
-
-    with trace_span("fastmnn/pca"):
-        pca = multi_batch_pca(
-            batches,
-            d=d,
-            weights=weights,
-            subset_row=subset_row,
-            get_all_genes=correct_all and subset_row is not None,
-            get_variance=get_variance,
-            method=svd_method,
-            batch_names=batch_names,
-            start=svd_start,
-            device=dev,
-        )
-    out = _fast_mnn_core(
-        pca.components,
-        restrict,
-        k=k,
-        prop_k=prop_k,
-        ndist=ndist,
-        merge_order=merge_order,
-        auto_merge=auto_merge,
-        min_batch_skip=min_batch_skip,
-        batch_names=batch_names,
-        checkpoint_dir=checkpoint_dir,
-        knn_method=knn_method,
-    )
-    if single:
-        reo = divided.reorder
-        out.corrected = out.corrected[as_tensor(reo, dev, torch.long)]
-        out.batch = out.batch[reo]
-        new_pairs = reindex_pairings([i.pairs for i in out.merge_info], reo)
-        for info, p in zip(out.merge_info, new_pairs):
-            info.pairs = p
-
-    out.rotation = pca.rotation
-    out.centers = pca.centers
-    out.var_explained = pca.var_explained
-    out.var_total = pca.var_total
-    if cell_names is not None:
+    with trace_span("fastmnn/call", entry="fast_mnn"):
+        dev = resolve_device(device)
+        single = not isinstance(batches_or_single, (list, tuple))
         if single:
-            out.cell_names = np.asarray(cell_names, dtype=object)
-        else:
-            out.cell_names = generate_cell_names(
-                cell_names, [b.shape[0] for b in batches]
+            x = as_tensor(batches_or_single, dev)
+            if batch is None:
+                raise ValueError("'batch' must be specified for a single input matrix")
+            divided = divide_into_batches(
+                np.arange(x.shape[0]), batch, cells_in_rows=True, restrict=restrict
             )
-    if gene_names is not None:
-        gn = np.asarray(gene_names, dtype=object)
-        if subset_row is not None and not correct_all:
-            gn = gn[np.asarray(subset_row)]
-        out.gene_names = gn
-    return out
+            batches = [x[as_tensor(idx, dev, torch.long)] for idx in divided.batches]
+            restrict = divided.restricted
+            if batch_names is None:
+                batch_names = [str(n) for n in divided.names]
+        else:
+            batches = [as_tensor(b, dev) for b in batches_or_single]
+            if len(batches) < 2:
+                raise ValueError("at least two batches must be specified")
+            check_batch_consistency(batches, cells_in_rows=True)
+            restrict = check_restrictions(batches, restrict, cells_in_rows=True)
+
+        # Cosine norm: L2 computed on the gene subset, applied to the full
+        # matrix; PCA handles subsetting (reference R/fastMNN.R:348-354, 371-377).
+        if cos_norm:
+            with trace_span("fastmnn/cosine_norm"):
+                l2s = [cosine_norm(b, mode="l2norm", subset_row=subset_row) for b in batches]
+                batches = [apply_cosine_norm(b, l2) for b, l2 in zip(batches, l2s)]
+
+        with trace_span("fastmnn/pca"):
+            pca = multi_batch_pca(
+                batches,
+                d=d,
+                weights=weights,
+                subset_row=subset_row,
+                get_all_genes=correct_all and subset_row is not None,
+                get_variance=get_variance,
+                method=svd_method,
+                batch_names=batch_names,
+                start=svd_start,
+                device=dev,
+            )
+        out = _fast_mnn_core(
+            pca.components,
+            restrict,
+            k=k,
+            prop_k=prop_k,
+            ndist=ndist,
+            merge_order=merge_order,
+            auto_merge=auto_merge,
+            min_batch_skip=min_batch_skip,
+            batch_names=batch_names,
+            checkpoint_dir=checkpoint_dir,
+            knn_method=knn_method,
+        )
+        if single:
+            reo = divided.reorder
+            out.corrected = out.corrected[as_tensor(reo, dev, torch.long)]
+            out.batch = out.batch[reo]
+            new_pairs = reindex_pairings([i.pairs for i in out.merge_info], reo)
+            for info, p in zip(out.merge_info, new_pairs):
+                info.pairs = p
+
+        out.rotation = pca.rotation
+        out.centers = pca.centers
+        out.var_explained = pca.var_explained
+        out.var_total = pca.var_total
+        if cell_names is not None:
+            if single:
+                out.cell_names = np.asarray(cell_names, dtype=object)
+            else:
+                out.cell_names = generate_cell_names(
+                    cell_names, [b.shape[0] for b in batches]
+                )
+        if gene_names is not None:
+            gn = np.asarray(gene_names, dtype=object)
+            if subset_row is not None and not correct_all:
+                gn = gn[np.asarray(subset_row)]
+            out.gene_names = gn
+        return out

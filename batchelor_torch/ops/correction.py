@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..device import as_tensor, full_fp32_matmul
+from ..utils.telemetry import trace_span
 from .knn import query_knn
 
 __all__ = [
@@ -166,24 +167,28 @@ def per_batch_var(data: torch.Tensor, index: Sequence[int], origin: np.ndarray) 
     n-1 denominator of R's colVars. Data are shifted by the global
     per-dimension mean before squaring: the sum-of-squares minus n mu^2
     identity cancels catastrophically in fp32 when the within-batch
-    variance is small against the batch offset. Returns host float64."""
-    origin = np.asarray(origin)
-    index = list(index)
-    mapping = np.zeros(int(max(index)) + 1, dtype=np.int64)
-    mapping[np.asarray(index, dtype=np.int64)] = np.arange(len(index))
-    labels_np = mapping[origin]
-    counts_np = np.bincount(labels_np, minlength=len(index)).astype(np.float64)
-    dev = data.device
-    acc = torch.promote_types(data.dtype, torch.float32)
-    x = data.to(acc)
-    x = x - x.mean(0)[None, :]
-    labels = as_tensor(labels_np, dev, torch.long)
-    sums = torch.zeros((len(index), x.shape[1]), device=dev, dtype=acc).index_add_(0, labels, x)
-    sqs = torch.zeros_like(sums).index_add_(0, labels, x * x)
-    cnt = as_tensor(counts_np, dev, acc)
-    ssd = (sqs - sums ** 2 / torch.clamp(cnt, min=1.0)[:, None]).sum(1)
-    ssd = ssd.cpu().numpy().astype(np.float64)
-    return np.where(counts_np >= 2, ssd / np.maximum(counts_np - 1.0, 1.0), 0.0)
+    variance is small against the batch offset. Returns host float64; the
+    whole function, its copy to the host included, is the span
+    ``correction/per_batch_var``."""
+    with trace_span("correction/per_batch_var"):
+        origin = np.asarray(origin)
+        index = list(index)
+        mapping = np.zeros(int(max(index)) + 1, dtype=np.int64)
+        mapping[np.asarray(index, dtype=np.int64)] = np.arange(len(index))
+        labels_np = mapping[origin]
+        counts_np = np.bincount(labels_np, minlength=len(index)).astype(np.float64)
+        dev = data.device
+        acc = torch.promote_types(data.dtype, torch.float32)
+        x = data.to(acc)
+        x = x - x.mean(0)[None, :]
+        labels = as_tensor(labels_np, dev, torch.long)
+        sums = torch.zeros((len(index), x.shape[1]), device=dev, dtype=acc)
+        sums = sums.index_add_(0, labels, x)
+        sqs = torch.zeros_like(sums).index_add_(0, labels, x * x)
+        cnt = as_tensor(counts_np, dev, acc)
+        ssd = (sqs - sums ** 2 / torch.clamp(cnt, min=1.0)[:, None]).sum(1)
+        ssd = ssd.cpu().numpy().astype(np.float64)
+        return np.where(counts_np >= 2, ssd / np.maximum(counts_np - 1.0, 1.0), 0.0)
 
 
 def tricube_average(
@@ -224,5 +229,6 @@ def tricube_weighted_correction(
     Mirrors .tricube_weighted_correction (reference R/fastMNN.R:599-608)."""
     uniq = curdata[as_tensor(in_mnn, curdata.device, torch.long)]
     safe_k = min(k, uniq.shape[0])
-    closest = query_knn(curdata, uniq, safe_k, device=curdata.device)
+    with trace_span("correction/tricube_search"):
+        closest = query_knn(curdata, uniq, safe_k, device=curdata.device)
     return curdata + tricube_average(correction, closest.indices, closest.distances, ndist)

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..device import DeviceLike, as_tensor, full_fp32_matmul, resolve_device
+from ..utils.telemetry import get_recorder, trace_span
 from .knn_cuda import query_knn_two_pass
 from .topk_cuda import select_topk
 
@@ -85,6 +86,18 @@ def _knn_tiled(query: torch.Tensor, data: torch.Tensor, k: int,
     return torch.cat(out_i), torch.clamp(-torch.cat(out_s), min=0.0)
 
 
+def _count_search(rec, path: str, nq: int, nd: int, n_valid, d: int, k: int) -> None:
+    """One search's counters under ``knn/<path>/``: its brute-force scores
+    (queries x valid data rows, whatever the path prunes), their 2 d flops,
+    and its bytes: both point sets read once in fp32, k int64 indices and k
+    fp32 distances written a query."""
+    scores = nq * n_valid
+    rec.add(f"knn/{path}/searches")
+    rec.add(f"knn/{path}/scores", scores)
+    rec.add(f"knn/{path}/flops", 2 * d * scores)
+    rec.add(f"knn/{path}/bytes", (nq + nd) * d * 4 + nq * k * 12)
+
+
 def query_knn(
     query,
     data,
@@ -112,7 +125,9 @@ def query_knn(
     ``n_data_valid`` or ``data_mask`` exclude data rows; ``k`` must not
     exceed the valid count. ``max_bytes`` bounds the two-pass buffers.
     Indices are int64; distances are Euclidean, squared with ``squared``,
-    None with ``indices_only``.
+    None with ``indices_only``. The search runs in a ``knn/exact`` or
+    ``knn/two_pass`` span and, under a recorder, adds to that path's
+    counters (``_count_search``).
     """
     if k <= 0:
         raise ValueError("k must be positive")
@@ -132,16 +147,25 @@ def query_knn(
         method = "bf16" if big and fp32 and dev.type == "cuda" else "exact"
     if method == "approx":
         method = "exact"
-    if method in ("chunked", "bf16"):
-        idx, sq = query_knn_two_pass(
-            query, data, k, valid, bf16=method == "bf16",
-            six_pass=exact_selection and method == "chunked",
-            with_scores=not indices_only, max_bytes=max_bytes,
-        )
-    elif method == "exact":
-        idx, sq = _knn_tiled(query, data, k, valid)
-    else:
+    if method not in ("exact", "chunked", "bf16"):
         raise ValueError(f"unknown kNN method {method!r}")
+    path = "exact" if method == "exact" else "two_pass"
+    rec = get_recorder()
+    if rec is not None:
+        if data_mask is not None:
+            n_valid = valid.sum()                    # read when the recorder sums up
+        else:
+            n_valid = nd if n_data_valid is None else min(int(n_data_valid), nd)
+        _count_search(rec, path, nq, nd, n_valid, query.shape[1], k)
+    with trace_span(f"knn/{path}", mode=method, nq=nq, nd=nd):
+        if path == "two_pass":
+            idx, sq = query_knn_two_pass(
+                query, data, k, valid, bf16=method == "bf16",
+                six_pass=exact_selection and method == "chunked",
+                with_scores=not indices_only, max_bytes=max_bytes,
+            )
+        else:
+            idx, sq = _knn_tiled(query, data, k, valid)
     if indices_only:
         return KNNResult(idx, None)
     return KNNResult(idx, sq if squared else torch.sqrt(sq))

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, as_tensor, resolve_device
+from ..utils.telemetry import trace_span
 from .knn import query_knn
 
 __all__ = ["mutual_nn_masks", "find_mutual_nn", "restricted_mnn", "choose_k",
@@ -76,7 +77,8 @@ def mutual_nn_masks(left: torch.Tensor, right: torch.Tensor, k1: int, k2: int,
     dev = left.device
     nn_l2r = query_knn(left, right, k2, method=method, device=dev)  # left's k2 NNs in right
     nn_r2l = query_knn(right, left, k1, method=method, device=dev)  # right's k1 NNs in left
-    mask = _membership(nn_l2r.indices, nn_r2l.indices)
+    with trace_span("mnn/pairs"):
+        mask = _membership(nn_l2r.indices, nn_r2l.indices)
     return mask, nn_l2r.indices, nn_l2r.distances
 
 
@@ -90,13 +92,16 @@ def _compact_pairs(mask: torch.Tensor, l2r: torch.Tensor):
 
 def find_mutual_nn(left, right, k1: int, k2: int, method: str = "exact",
                    device: DeviceLike = None) -> MNNPairs:
-    """Materialized MNN pair lists (host numpy), in the reference's order."""
+    """Materialized MNN pair lists (host numpy), in the reference's order.
+    The membership test and the compaction with its copy to the host run
+    in ``mnn/pairs`` spans, the two searches before them in ``knn/*``."""
     dev = resolve_device(device)
     mask, l2r, _ = mutual_nn_masks(as_tensor(left, dev), as_tensor(right, dev),
                                    k1, k2, method=method)
-    first, second = _compact_pairs(mask, l2r)
-    return MNNPairs(first=first.cpu().numpy().astype(np.int64),
-                    second=second.cpu().numpy().astype(np.int64))
+    with trace_span("mnn/pairs"):
+        first, second = _compact_pairs(mask, l2r)
+        return MNNPairs(first=first.cpu().numpy().astype(np.int64),
+                        second=second.cpu().numpy().astype(np.int64))
 
 
 def restricted_mnn(

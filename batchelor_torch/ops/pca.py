@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, as_tensor, full_fp32_matmul, resolve_device
+from ..utils.telemetry import trace_span
 from ..utils.trees import tree_weights
 from .cosine_norm import subset_columns
 
@@ -136,18 +137,22 @@ def _tiny(t: torch.Tensor) -> float:
 
 
 def _svd_direct(scaled: torch.Tensor, d: int):
-    u, s, vt = torch.linalg.svd(scaled, full_matrices=False)
+    with trace_span("pca/svd"):
+        u, s, vt = torch.linalg.svd(scaled, full_matrices=False)
     return vt[:d].T, s[:d], u[:, :d]
 
 
 def _svd_randomized(scaled: torch.Tensor, d: int, transpose: bool, start=None):
-    gram = _gram_of(scaled, transpose)
-    evals, vec = _randomized_psd_eigh(gram, d, start=start)
-    s = torch.sqrt(torch.clamp(evals, min=0.0))
-    safe = torch.clamp(s, min=_tiny(scaled))[None, :]
-    if transpose:
-        return vec, s, (scaled @ vec) / safe
-    return (scaled.T @ vec) / safe, s, vec
+    with trace_span("pca/gram"):
+        gram = _gram_of(scaled, transpose)
+    with trace_span("pca/eigh"):
+        evals, vec = _randomized_psd_eigh(gram, d, start=start)
+    with trace_span("pca/project"):
+        s = torch.sqrt(torch.clamp(evals, min=0.0))
+        safe = torch.clamp(s, min=_tiny(scaled))[None, :]
+        if transpose:
+            return vec, s, (scaled @ vec) / safe
+        return (scaled.T @ vec) / safe, s, vec
 
 
 def _gram_of(scaled: torch.Tensor, transpose: bool) -> torch.Tensor:
@@ -171,7 +176,9 @@ def _scaled_svd(scaled: torch.Tensor, d: int, method: str, start=None):
     Returns (V (G, d), singvals (d,), U (sumN, d)). ``method``: "gram" is
     the exact eigendecomposition of the smaller-side cross-product;
     "randomized" is subspace iteration on it (``start``: its start block);
-    "direct" a full SVD (most accurate, most FLOPs).
+    "direct" a full SVD (most accurate, most FLOPs). The Gram, its
+    eigendecomposition and the projection run in the spans ``pca/gram``,
+    ``pca/eigh`` and ``pca/project``; the full SVD in ``pca/svd``.
     """
     n, g = scaled.shape
     if method == "direct":
@@ -181,8 +188,12 @@ def _scaled_svd(scaled: torch.Tensor, d: int, method: str, start=None):
     if method != "gram":
         raise ValueError(f"unknown svd method {method!r}")
     transpose = g <= n
-    evals, evecs = full_eigh(_gram_of(scaled, transpose))
-    return _gram_project(scaled, evals, evecs, d, transpose)
+    with trace_span("pca/gram"):
+        gram = _gram_of(scaled, transpose)
+    with trace_span("pca/eigh"):
+        evals, evecs = full_eigh(gram)
+    with trace_span("pca/project"):
+        return _gram_project(scaled, evals, evecs, d, transpose)
 
 
 def _center_and_scale(mats: Sequence[torch.Tensor], weights: np.ndarray):
@@ -240,24 +251,28 @@ def multi_batch_pca(
         sub = list(batches)
 
     with full_fp32_matmul():
-        centered, scaled, centers = _center_and_scale(sub, w)
+        with trace_span("pca/center_scale"):
+            centered, scaled, centers = _center_and_scale(sub, w)
         if d is None:
             return _passthrough(centered, scaled, g_all, subset_row, get_all_genes,
                                 get_variance, names)
 
         d_eff = int(min(d, scaled.shape[0], scaled.shape[1]))
         v, s, u = _scaled_svd(scaled, d_eff, method, start)
-        components = [c @ v for c in centered]
+        with trace_span("pca/project"):
+            components = [c @ v for c in centered]
 
         if get_all_genes and subset_row is not None:
             keep = np.zeros(g_all, dtype=bool)
             keep[subset_row] = True
             leftover_idx = np.nonzero(~keep)[0]
             left = [subset_columns(b, leftover_idx) for b in batches]
-            _, left_scaled, left_centers = _center_and_scale(left, w)
+            with trace_span("pca/center_scale"):
+                _, left_scaled, left_centers = _center_and_scale(left, w)
             # leftover rotation rows: project unused genes into the cell space
             # (reference R/multiBatchPCA.R:396-414): u_left = scaled_left^T U / s.
-            leftover_u = (left_scaled.T @ u) / torch.clamp(s, min=_tiny(scaled))[None, :]
+            with trace_span("pca/project"):
+                leftover_u = (left_scaled.T @ u) / torch.clamp(s, min=_tiny(scaled))[None, :]
             sub_t = as_tensor(subset_row, dev)
             left_t = as_tensor(leftover_idx, dev)
             rotation = torch.zeros((g_all, d_eff), dtype=scaled.dtype, device=dev)

@@ -671,3 +671,81 @@ def test_distributed_fast_mnn_nccl_world_of_one_matches_reduced_mnn(card, tmp_pa
             assert int((rows > 1e-4 * scale).sum()) <= len(rows) // 1000
     finally:
         dist.destroy_process_group()
+
+
+def _atlas_pcs(card, sizes=(12_000, 12_000, 4_000), d=50):
+    """Three batches of PCs: the first step's searches score 1.44e8 > 2^27
+    (the two-pass path under "auto"), the second's 9.6e7 (exact)."""
+    base = torch.randn(8, d, device="cuda", generator=card)
+    return [base[torch.randint(0, 8, (n,), device="cuda", generator=card)]
+            + 0.3 * torch.randn(n, d, device="cuda", generator=card) + 0.5 * b
+            for b, n in enumerate(sizes)]
+
+
+def test_two_pass_counters_of_an_auto_search(card):
+    import batchelor_torch as bt
+    from batchelor_torch.ops.knn import AUTO_MIN_SCORES
+
+    nq, nd, d, k = 12_000, 12_000, 50, 20
+    assert nq * nd > AUTO_MIN_SCORES
+    q = torch.randn(nq, d, device="cuda", generator=card)
+    x = torch.randn(nd, d, device="cuda", generator=card)
+    mask = torch.rand(nd, device="cuda", generator=card) < 0.5
+    rec = bt.MetricsRecorder()
+    with rec.activate():
+        query_knn(q, x, k, method="auto")
+        query_knn(q[:100], x, k, data_mask=mask)       # its valid count stays on the card
+    assert [r["name"] for r in rec.records] == ["knn/two_pass", "knn/exact"]
+    assert rec.records[0]["attrs"] == {"mode": "bf16", "nq": nq, "nd": nd}
+    n_valid = int(mask.sum())
+    assert rec.summary()["counters"] == {
+        "knn/two_pass/searches": 1.0, "knn/two_pass/scores": float(nq * nd),
+        "knn/two_pass/flops": float(2 * d * nq * nd),
+        "knn/two_pass/bytes": float((nq + nd) * d * 4 + nq * k * 12),
+        "knn/exact/searches": 1.0, "knn/exact/scores": float(100 * n_valid),
+        "knn/exact/flops": float(2 * d * 100 * n_valid),
+        "knn/exact/bytes": float((100 + nd) * d * 4 + 100 * k * 12)}
+
+
+def test_device_time_of_every_span(card):
+    import batchelor_torch as bt
+
+    batches = _atlas_pcs(card)
+    rec = bt.MetricsRecorder(device_time=True)
+    with rec.activate():
+        bt.reduced_mnn(batches, k=20, knn_method="auto")
+    spans = rec.summary()["spans"]
+    assert all(r["device_ms"] >= 0 for r in rec.records)
+    assert spans["fastmnn/call"]["device_ms"] > 0
+    assert spans["knn/two_pass"]["count"] == 2 and spans["knn/two_pass"]["device_ms"] > 0
+    inner = sum(spans[n]["device_ms"] for n in ("fastmnn/orthogonalize",
+                                                "fastmnn/mnn_search", "fastmnn/correct"))
+    assert inner <= spans["fastmnn/call"]["device_ms"] * 1.01
+
+
+def test_a_recorder_adds_no_host_synchronization(card):
+    """A profiled call issues the same synchronizing runtime calls with no
+    recorder, a recorder and a recorder with device timing."""
+    import collections
+    import contextlib
+
+    import batchelor_torch as bt
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = _atlas_pcs(card)
+    bt.reduced_mnn(batches, k=20, knn_method="auto")        # warm
+
+    def syncs(rec):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                (rec.activate() if rec else contextlib.nullcontext()):
+            bt.reduced_mnn(batches, k=20, knn_method="auto")
+            torch.cuda.synchronize()
+        return collections.Counter(e.name for e in prof.events()
+                                   if "Synchronize" in e.name or e.name.startswith("cudaMemcpy"))
+
+    plain = syncs(None)
+    assert plain["cudaStreamSynchronize"] > 0
+    assert syncs(bt.MetricsRecorder()) == plain
+    timed = bt.MetricsRecorder(device_time=True)
+    assert syncs(timed) == plain
+    assert timed.summary()["spans"]["fastmnn/call"]["device_ms"] > 0

@@ -209,5 +209,5 @@ def test_telemetry_surface():
     s = rec.summary()
     assert s["counters"] == {"merge_steps": 1.0, "mnn_pairs": 7.0}
     assert s["spans"]["unit/span"]["count"] == 1
-    assert rec.attrs[0]["step"] == 0
+    assert rec.records[0]["attrs"]["step"] == 0
     assert '"merge_steps": 1.0' in rec.dump_json()
