@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("chunk_max", "topk_rows", "rescore_chunks", "pass1_norm")
+KERNELS = ("chunk_max", "topk_rows", "rescore_chunks", "pass1_norm", "knn_exact")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -6,8 +6,8 @@ centroids -> full-rank multi-batch PCA of the centroids -> reducedMNN with
 k=1 on the centroids -> per-cell propagation by a variable-bandwidth
 Gaussian kernel -> meta-clusters as connected components of the centroid
 MNN-pair graph. The cells' nearest-centroid search is the port's
-``query_knn`` (kernel K2 on rows of k plus a few centroids); every distance
-product runs in full fp32. ``cluster_mnn_csr`` takes CSR stores: its
+``query_knn`` (on the card kernel K5 while the centroids' PCs are at most
+128 wide); every distance product runs in full fp32. ``cluster_mnn_csr`` takes CSR stores: its
 centroids are host means over the nonzeros, and the cells' projection
 streams through the device block by block; both share the merge and the
 propagation.

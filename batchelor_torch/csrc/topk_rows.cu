@@ -43,6 +43,8 @@
 #include <climits>
 #include <cmath>
 
+#include "warp_list.cuh"
+
 #ifndef TOPK_ROWS_HEAD
 #define TOPK_ROWS_HEAD 20
 #endif
@@ -52,7 +54,8 @@
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using namespace warp_list;
+
 constexpr int kWarps = 8;                 // rows a CTA
 constexpr int kHead = TOPK_ROWS_HEAD;     // 32-column steps of the head block
 constexpr int kSteps = TOPK_ROWS_STEPS;   // 32-column steps a streamed batch
@@ -74,44 +77,13 @@ __device__ __forceinline__ float warp_kth_largest(float m, int k, int lane) {
   return __shfl_sync(kFull, m, k - 1);
 }
 
-// Value of list entry k - 1, in every lane.
-template <int S>
-__device__ __forceinline__ float kth_value(const float (&ev)[S], int k) {
-  float t = ev[0];
-  if constexpr (S == 2) t = k > 32 ? ev[1] : ev[0];
-  return __shfl_sync(kFull, t, (k - 1) & 31);
-}
-
 // Inserts (v, col), whose column is above every column in the list, at its
 // place in the list. The list's first `filled` entries hold columns; the
 // rest hold the sentinel, which goes behind any column, also an -inf one.
 template <int S>
 __device__ __forceinline__ void insert(float (&ev)[S], int (&ec)[S], float v, int col,
                                        int filled, int lane) {
-  int pos = 0;
-#pragma unroll
-  for (int s = 0; s < S; ++s) pos += __popc(__ballot_sync(kFull, ev[s] >= v));
-  pos = min(pos, filled);
-  float uv[S];
-  int uc[S];
-  uv[0] = __shfl_up_sync(kFull, ev[0], 1);
-  uc[0] = __shfl_up_sync(kFull, ec[0], 1);
-  if constexpr (S == 2) {                 // slot 1's lane 0 takes slot 0's lane 31
-    const int from = (lane + 31) & 31;
-    uv[1] = __shfl_sync(kFull, lane == 31 ? ev[0] : ev[1], from);
-    uc[1] = __shfl_sync(kFull, lane == 31 ? ec[0] : ec[1], from);
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int p = 32 * s + lane;
-    if (p > pos) {
-      ev[s] = uv[s];
-      ec[s] = uc[s];
-    } else if (p == pos) {
-      ev[s] = v;
-      ec[s] = col;
-    }
-  }
+  insert_at<S>(ev, ec, v, col, min(place_after_ties<S>(ev, v), filled), lane);
 }
 
 // One step of 32 head columns, col0 + lane holding xv. A column goes in when

@@ -8,7 +8,9 @@ The exact search (``_knn_tiled``) computes the score -|q - x|^2 =
 2 q.x - |x|^2 - |q|^2 one (query tile x data tile) block at a time with a
 matrix product and keeps a running top-k over [best k | tile scores], so
 the full distance matrix never exists. Ties go to the lower data index.
-The two-pass search (``knn_cuda.py``) serves the large searches.
+On the card it runs as one kernel, K5 (``knn_exact_cuda.py``), where
+``knn_exact_cuda.takes`` allows; ``_knn_tiled`` is its plain version. The
+two-pass search (``knn_cuda.py``) serves the large searches.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from ..device import DeviceLike, as_tensor, full_fp32_matmul, resolve_device
 from ..utils.telemetry import get_recorder, trace_span
+from . import knn_exact_cuda
 from .knn_cuda import query_knn_two_pass
 from .topk_cuda import select_topk
 
@@ -115,7 +118,8 @@ def query_knn(
     """For each row of ``query``, the ``k`` nearest rows of ``data``.
 
     Methods, as in the reference's ``query_knn``:
-      * "exact": the tiled search (index-stable ties);
+      * "exact": the tiled search (index-stable ties), on the card kernel
+        K5 for fp32 with k <= 64 and width <= 128;
       * "chunked": the two-pass search with fp32 selection (kernels K1, K2),
         exact up to ties; ``exact_selection`` uses the 6-product split;
       * "bf16": the two-pass search with bf16 selection (distances exact fp32);
@@ -127,7 +131,7 @@ def query_knn(
     Indices are int64; distances are Euclidean, squared with ``squared``,
     None with ``indices_only``. The search runs in a ``knn/exact`` or
     ``knn/two_pass`` span and, under a recorder, adds to that path's
-    counters (``_count_search``).
+    counters (``_count_search``), and to ``knn/exact/fused`` when K5 runs it.
     """
     if k <= 0:
         raise ValueError("k must be positive")
@@ -150,6 +154,7 @@ def query_knn(
     if method not in ("exact", "chunked", "bf16"):
         raise ValueError(f"unknown kNN method {method!r}")
     path = "exact" if method == "exact" else "two_pass"
+    fused = path == "exact" and knn_exact_cuda.takes(dev, query.dtype, k, query.shape[1])
     rec = get_recorder()
     if rec is not None:
         if data_mask is not None:
@@ -157,6 +162,8 @@ def query_knn(
         else:
             n_valid = nd if n_data_valid is None else min(int(n_data_valid), nd)
         _count_search(rec, path, nq, nd, n_valid, query.shape[1], k)
+        if fused:
+            rec.add("knn/exact/fused")
     with trace_span(f"knn/{path}", mode=method, nq=nq, nd=nd):
         if path == "two_pass":
             idx, sq = query_knn_two_pass(
@@ -164,6 +171,8 @@ def query_knn(
                 six_pass=exact_selection and method == "chunked",
                 with_scores=not indices_only, max_bytes=max_bytes,
             )
+        elif fused:
+            idx, sq = knn_exact_cuda.knn_exact(query, data, k, valid)
         else:
             idx, sq = _knn_tiled(query, data, k, valid)
     if indices_only:

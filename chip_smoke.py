@@ -19,7 +19,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      over its library call's is printed;
   3. the main path: reduced_mnn on two batches of 100,000 x 50 fp32 cells
      (bench.py's simulation, seed 42), k = 20, knn_method="auto", with the
-     launch counters showing that K1, K2 and K3 ran, its pairs against an
+     launch counters showing that K1, K2 and K3 ran in the MNN searches and
+     K5 in the tricube searches, its pairs against an
      "exact" run (pair-set Jaccard >= 0.97: bf16 selection loses near-ties)
      and finite corrected values;
   4. the card against the CPU at 2 x 5,000 cells ("exact"): identical pairs,
@@ -44,7 +45,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      launches (the casts to bf16 and the kernel) are counted;
   7. the slice's path: fast_mnn from gene space on two batches of
      100,000 cells x 2,000 genes, d = 50, k = 20, knn_method="auto", with
-     the launch counters showing K1, K2 and K3, finite corrected values, an
+     the launch counters showing K1, K2, K3 and K5 (the tricube searches), finite corrected values, an
      orthonormal rotation, and its pairs against an "exact" run: pair-set
      Jaccard >= 0.80 for "auto" (bf16 selection loses crowded neighbours)
      and >= 0.97 for "chunked" (fp32 selection: K1's split3 mode), which
@@ -60,7 +61,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      values within 1e-4 x max|corrected| on >= 99.9% of rows (the rows
      beyond are printed: a tricube neighbour tie can fall either way; under
      "auto" they are printed only); the launch counters show K1, K2 and K3
-     in the "auto" step; a further "auto" call runs under
+     in the "auto" step and K5 in the "exact" one; a further "auto" call runs under
      torch.cuda.set_sync_debug_mode("error"), which raises at any sync with
      the host; then the step and reduced_mnn under torch.profiler (wall and
      device ms, idle share, device launches);
@@ -80,13 +81,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      the card (Poisson of the simulation's log-means, 4 cell types, batch 2
      shifted), hvg_n = 2,000, FastMNNParams(d=50, knn_method="auto"),
      correct_all: first and second call with the seconds of its
-     normalization, variance model and correction, K1, K2 and K3 on the
+     normalization, variance model and correction, K1, K2, K3 and K5 on the
      launch counters, one call profiled; then the card against the CPU at
      2 x 2,000 x 500 in fp64: the same HVGs, identical pairs, corrected
      within 1e-6 x max|corrected| after sign alignment;
  13. cluster_mnn on bench.py config 4's atlas (8 x 100,000 cells x 500
      genes, log1p |x| of the simulation, its labels as clusters): first
-     and second call, K2 on the launch counter, one call profiled; the
+     and second call, K5 on the launch counter (the nearest-centroid
+     searches, k = 1 over the centroids' PCs), one call profiled; the
      k-means path (clusters=4) on 2 of the batches; then the card against
      the CPU at 8 x 2,000 x 100 in fp64: the same centroid pairs (the
      centroids at one position, an exact tie, taken as one), the same
@@ -101,7 +103,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      nonzero, droplet density), converted on the card to host CSRCells;
      quick_correct_csr (hvg_n = 2,000, d = 50, k = 20, "auto", min_mean =
      0.1 for UMI counts) first and second call with its quickcsr/* spans,
-     K1, K2 and K3 on the launch counters, one call profiled, beside the
+     K1, K2, K3 and K5 on the launch counters, one call profiled, beside the
      dense quick_correct on the same counts (HVG overlap, pair Jaccard,
      and the pair Jaccard with an exact PCA of the HVG stores in place of
      the randomized one that quick_correct_csr takes above 1,024 genes,
@@ -129,7 +131,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      distributed_fast_mnn on BASELINE.md config 4's atlas, 8 x 125,000 x 50
      (bench.py's shifts 0.3 i, seed 42), k = 20, "exact", in the "gather"
      and "ring" memory modes (first call, second call, one profiled call
-     with its NCCL kernels' ms), K2 on the launch counter; the gated calls
+     with its NCCL kernels' ms), K5 on the launch counter (and K2 in the
+     ring's running merge); the gated calls
      run with deterministic algorithms. Gates: gather, ring and the same
      call without a process group agree exactly (identical pairs in every
      step, every row within 1e-4 x its max, lost variance within 1e-5);
@@ -146,7 +149,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      3 x 20,000 run interrupted after
      its first step and resumed, bit for bit; quick_correct_csr(mesh=) on
      phase 15's stores against the call without a mesh ("exact"):
-     identical pairs, rows within 1e-4 x their max on >= 99.9%.
+     identical pairs, rows within 1e-4 x their max on >= 99.9%;
+ 17. kernel K5 (knn_exact, the exact search on the card) against its plain
+     version (knn._knn_tiled) on the same card tensors at the
+     hca_bone_marrow atlas's shapes: 8 x 47,250 x 50 cells of the
+     simulation (shifts 0.3 i), k = 20, the last merge step both ways
+     (47,250 x 330,750 and 330,750 x 47,250) and its tricube search
+     (47,250 queries over 36,000 of the left's cells): the same neighbours
+     on every row whose k-th and (k+1)-th plain distances lie more than
+     2^-20 of their terms apart, every distance within 1e-5 of its terms;
+     each shape's ms, the plain version's and the bound by fp32 FMAs.
 It prints each phase's seconds, the build time, one {"kernels": [...]} line with each kernel's
 launches on each path, times (median of CUDA-event timings), bound and
 library yardstick, one line for each path's seconds, the card's name and
@@ -175,6 +187,7 @@ FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores, same source
 K1_TOL = 2.0 ** -20
 PAIR_JACCARD_MIN = 0.97
 FAST_AUTO_JACCARD_MIN = 0.80   # bf16 selection on fast_mnn's crowded PCs (phase 7)
+TWO_PASS = ("chunk_max_scores", "topk_rows", "rescore_subchunks")   # K1, K2, K3
 
 
 def simulate(rng, n, g, shift=0.0, n_types=4, noise=0.5, labels=False):
@@ -395,6 +408,11 @@ def read_counts(wrappers):
     return {w.__name__: w.launches for w in wrappers}
 
 
+def ran(launches, names):
+    """Whether each of the kernels ``names`` launched."""
+    return all(launches[n] > 0 for n in names)
+
+
 def phase_main_path(torch, np, bt, path_kernels, b1, b2):
     """reduced_mnn at 2 x 100k; returns (launch counts, seconds, pairs)."""
     print("phase 3: reduced_mnn, 2 x 100,000 x 50, k=20, knn_method='auto'", flush=True)
@@ -406,7 +424,8 @@ def phase_main_path(torch, np, bt, path_kernels, b1, b2):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts(path_kernels)
-    check(all(v > 0 for v in launches.values()), f"K1, K2 and K3 ran: {launches}")
+    check(ran(launches, TWO_PASS + ("knn_exact",)),
+          f"K1, K2 and K3 ran, and K5 in the tricube searches: {launches}")
     check(tuple(res.corrected.shape) == (2 * N_CELLS, DIMS)
           and bool(torch.isfinite(res.corrected).all()), "corrected is finite, (200000, 50)")
     t0 = time.perf_counter()
@@ -736,7 +755,8 @@ def phase_fast_mnn(torch, np, bt, path_kernels):
             seconds = time.perf_counter() - t0
         if run == "first":
             launches = read_counts(path_kernels)
-            check(all(v > 0 for v in launches.values()), f"K1, K2 and K3 ran: {launches}")
+            check(ran(launches, TWO_PASS + ("knn_exact",)),
+                  f"K1, K2 and K3 ran, and K5 in the tricube searches: {launches}")
         spans = {k: sum(v) for k, v in rec.spans.items()}
         split = {"cosine_norm_s": spans.get("fastmnn/cosine_norm", 0.0),
                  "pca_s": spans.get("fastmnn/pca", 0.0)}
@@ -761,8 +781,9 @@ def phase_fast_mnn(torch, np, bt, path_kernels):
         chunked_s.append(time.perf_counter() - t0)
         if run == "first":
             chunked_launches = read_counts(path_kernels)
-            check(all(v > 0 for v in chunked_launches.values()),
-                  f"'chunked': K1 (split3), K2 and K3 ran: {chunked_launches}")
+            check(ran(chunked_launches, TWO_PASS + ("knn_exact",)),
+                  f"'chunked': K1 (split3), K2 and K3 ran, and K5 in the tricube searches: "
+                  f"{chunked_launches}")
         print(f"  'chunked' {run} run: {chunked_s[-1]:.3f} s", flush=True)
     fp32 = pair_set(chunked.merge_info[0], 2 * N_CELLS)
     a = pair_set(res.merge_info[0], 2 * N_CELLS)
@@ -892,7 +913,9 @@ def phase_fused(torch, np, bt, path_kernels, b1, b2):
         seconds = time.perf_counter() - t0
         launches = read_counts(path_kernels)
         if method == "auto":
-            check(all(v > 0 for v in launches.values()), f"'auto': K1, K2 and K3 ran: {launches}")
+            check(ran(launches, TWO_PASS), f"'auto': K1, K2 and K3 ran: {launches}")
+        else:
+            check(ran(launches, ("knn_exact",)), f"'exact': K5 ran: {launches}")
         ref = bt.reduced_mnn([left, right], k=K, knn_method=method)
         ours, theirs = fused_pair_set(np, fused, N_CELLS, n), pair_set(ref.merge_info[0], n)
         check(np.array_equal(np.sort(ours), np.sort(theirs)),
@@ -1115,7 +1138,8 @@ def phase_quick_correct(torch, np, bt, path_kernels):
             seconds = time.perf_counter() - t0
         if run == "first":
             launches = read_counts(path_kernels)
-            check(all(v > 0 for v in launches.values()), f"K1, K2 and K3 ran: {launches}")
+            check(ran(launches, TWO_PASS + ("knn_exact",)),
+                  f"K1, K2 and K3 ran, and K5 in the tricube searches: {launches}")
         spans = {k: sum(v) for k, v in rec.spans.items()}
         split = {"normalize_s": spans.get("quickcorrect/normalize", 0.0),
                  "model_gene_var_s": spans.get("quickcorrect/model_gene_var", 0.0),
@@ -1185,7 +1209,8 @@ def phase_cluster(torch, np, bt, path_kernels):
         seconds.append(time.perf_counter() - t0)
         if run == "first":
             launches = read_counts(path_kernels)
-            check(launches["topk_rows"] > 0, f"K2 ran in the nearest-centroid searches: {launches}")
+            check(ran(launches, ("knn_exact",)),
+                  f"K5 ran in the nearest-centroid searches: {launches}")
         print(f"  {run} run: {seconds[-1]:.3f} s", flush=True)
     prof = profiled(torch, lambda: bt.cluster_mnn(mats, clusters=labels))
     print_profile(prof, "cluster_mnn")
@@ -1468,8 +1493,9 @@ def phase_outofcore(torch, np, bt, path_kernels, root):
             qc, s = sync_time(torch, lambda: bt.quick_correct_csr(stores, **qkw))
         if run == "first":
             launches["quick_correct_csr"] = read_counts(path_kernels)
-            check(all(v > 0 for v in launches["quick_correct_csr"].values()),
-                  f"K1, K2 and K3 ran: {launches['quick_correct_csr']}")
+            check(ran(launches["quick_correct_csr"], TWO_PASS + ("knn_exact",)),
+                  f"K1, K2 and K3 ran, and K5 in the tricube searches: "
+                  f"{launches['quick_correct_csr']}")
         spans = {k: sum(v) for k, v in rec.spans.items() if k.startswith("quickcsr/")}
         runs.append({"seconds": s, "spans": spans})
         print(f"  quick_correct_csr {run} run: {s:.3f} s {spans}", flush=True)
@@ -1555,8 +1581,8 @@ def phase_outofcore(torch, np, bt, path_kernels, root):
           and bool(np.isfinite(mc.corrected).all()),
           "mnn_correct_csr with correct_all: a finite host result (out_on_host)")
     cm = engine("cluster_mnn_csr", lambda: bt.cluster_mnn_csr(hvg_stores, clusters=labels))
-    check(bool(torch.isfinite(cm.corrected).all()) and launches["cluster_mnn_csr"]["topk_rows"] > 0,
-          f"cluster_mnn_csr: finite, {len(cm.cluster_meta['meta'])} centroids, K2 ran")
+    check(bool(torch.isfinite(cm.corrected).all()) and ran(launches["cluster_mnn_csr"], ("knn_exact",)),
+          f"cluster_mnn_csr: finite, {len(cm.cluster_meta['meta'])} centroids, K5 ran")
     rs = engine("rescale_batches_csr", lambda: bt.rescale_batches_csr(hvg_stores))
     check(all(np.isfinite(s.data).all() and np.array_equal(s.indptr, h.indptr)
               for s, h in zip(rs, hvg_stores)), "rescale_batches_csr: finite, pattern kept")
@@ -1782,9 +1808,10 @@ def _parallel_runs(torch, np, bt, path_kernels, root, stores, mesh, n_all, dfm,
     line["reduced_mnn_exact_seconds"] = ref_s
     print(f"  reduced_mnn 'exact': {ref_s:.3f} s", flush=True)
     gather, ring = runs["gather"], runs["ring"]
-    for mode in ("gather", "ring"):
-        check(launches[f"distributed_fast_mnn_{mode}_exact"]["topk_rows"] > 0,
-              f"'{mode}': K2 ran on the exact path")
+    check(ran(launches["distributed_fast_mnn_gather_exact"], ("knn_exact",)),
+          "'gather': K5 ran on the exact path")
+    check(ran(launches["distributed_fast_mnn_ring_exact"], ("knn_exact", "topk_rows")),
+          "'ring': K5 ran on the exact path, K2 in its running merge")
     check(all(tuple(r.corrected.shape) == (n_all, DIMS) and bool(torch.isfinite(r.corrected).all())
               for r in (gather, ring)), f"corrected finite, ({n_all}, {DIMS}), both modes")
     with deterministic(torch):
@@ -1856,7 +1883,7 @@ def _parallel_runs(torch, np, bt, path_kernels, root, stores, mesh, n_all, dfm,
     zero_counts(path_kernels)
     auto, auto_s = sync_time(torch, lambda: dfm(mats, mesh, k=K, knn_method="auto"))
     launches["distributed_fast_mnn_gather_auto"] = read_counts(path_kernels)
-    check(all(v > 0 for v in launches["distributed_fast_mnn_gather_auto"].values()),
+    check(ran(launches["distributed_fast_mnn_gather_auto"], TWO_PASS),
           f"'auto': K1, K2 and K3 ran: {launches['distributed_fast_mnn_gather_auto']}")
     _, auto_s2 = sync_time(torch, lambda: dfm(mats, mesh, k=K, knn_method="auto"))
     auto_prof = profiled(torch, lambda: dfm(mats, mesh, k=K, knn_method="auto"), warm_up=False)
@@ -1940,6 +1967,75 @@ def cli_run(root, argv):
     return out.stdout
 
 
+ATLAS_N = 47_250               # phase 17: hca_bone_marrow's cells a donor, 8 donors
+TRICUBE_N = 36_000             # its last step's tricube search: the involved left cells
+
+
+def k5_bound_ms(nq, nd, d):
+    """d fp32 FMAs a score at the card's fp32 rate."""
+    return 2.0 * d * nq * nd / FP32_FLOP_PER_S * 1e3
+
+
+def knn_agreement(torch, got, want_i, want_sq, q, x, k):
+    """(rows compared, rows whose neighbour sets differ, largest distance
+    error over its terms' scale) of K5's ``got`` against the plain search's
+    k + 1 neighbours: rows are compared where the plain k-th and (k+1)-th
+    distances lie more than 2^-20 of their terms apart."""
+    idx, sq = got
+    qn = (q.double() ** 2).sum(1, keepdim=True)
+    scale = qn + (x.double() ** 2).sum(1)[want_i]
+    err = float(((sq.double() - want_sq[:, :k].double()).abs() / scale[:, :k]).max())
+    apart = (want_sq[:, k].double() - want_sq[:, k - 1].double()) > 2.0**-20 * scale[:, k - 1]
+    differ = (idx[apart].sort(1).values != want_i[apart, :k].sort(1).values).any(1)
+    return int(apart.sum()), int(differ.sum()), err
+
+
+def phase_k5(torch, np, knn_exact_cuda):
+    """K5 against its plain version at the atlas's shapes; returns its entry."""
+    from batchelor_torch.ops.knn import _knn_tiled
+
+    print(f"phase 17: knn_exact (K5) against its plain version, 8 x {ATLAS_N:,} x {DIMS}, "
+          f"k={K}", flush=True)
+    rng = np.random.default_rng(SEED)
+    batches = [torch.from_numpy(simulate(rng, ATLAS_N, DIMS, shift=0.3 * i)).cuda()
+               for i in range(8)]
+    left, right = torch.cat(batches[:7]), batches[7]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    involved = left[torch.randperm(left.shape[0], device="cuda", generator=gen)[:TRICUBE_N]]
+    entries = []
+    max_err = 0.0
+    for label, q, x in (("mnn_right_to_left", right, left), ("mnn_left_to_right", left, right),
+                        ("tricube", right, involved)):
+        nq, nd = q.shape[0], x.shape[0]
+        valid = torch.ones(nd, device="cuda", dtype=torch.bool)
+        want_i, want_sq = _knn_tiled(q, x, K + 1, valid)
+        rows, differ, err = knn_agreement(torch, knn_exact_cuda.knn_exact(q, x, K, valid),
+                                          want_i, want_sq, q, x, K)
+        del want_i, want_sq
+        check(differ == 0 and err <= 1e-5,
+              f"K5 {nq} x {nd}: the same neighbours on all {rows} rows apart from near-ties, "
+              f"distances within 1e-5 of their terms ({err:.3g})")
+        max_err = max(max_err, err)
+        entry = {"label": label, "shape": [nq, nd, DIMS], "k": K, "rows_compared": rows,
+                 "ms": cuda_ms(torch, lambda: knn_exact_cuda.knn_exact(q, x, K, valid), 10),
+                 "plain_ms": cuda_ms(torch, lambda: _knn_tiled(q, x, K, valid), 3),
+                 "bound_ms": k5_bound_ms(nq, nd, DIMS)}
+        entry["fp32_fma_peak_pct"] = 100.0 * entry["bound_ms"] / entry["ms"]
+        entries.append(entry)
+        print(f"  {label}: K5 {entry['ms']:.3f} ms ({entry['fp32_fma_peak_pct']:.1f}% of the "
+              f"fp32 FMA peak), plain {entry['plain_ms']:.3f} ms, bound "
+              f"{entry['bound_ms']:.3f} ms", flush=True)
+    main = entries[0]
+    return {
+        "name": "knn_exact", "route": "cuda", "source": "batchelor_torch/csrc/knn_exact.cu",
+        "replaces": "batchelor_torch/ops/knn.py::_knn_tiled on the card",
+        "launches": None, "max_dist_err": max_err,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "operations (fp32 FMA)", "library_ms": None,
+        "shape": main["shape"], "k": K, "other_shapes": entries[1:],
+    }
+
+
 def main():
     import torch
 
@@ -1951,7 +2047,7 @@ def main():
 
     import batchelor_torch as bt
     from batchelor_torch import _build
-    from batchelor_torch.ops import knn_cuda, pass1_cuda, rescore_cuda, topk_cuda
+    from batchelor_torch.ops import knn_cuda, knn_exact_cuda, pass1_cuda, rescore_cuda, topk_cuda
 
     build_s = _build.build()
     print(f"build: {build_s:.3f} s for {len(_build.KERNELS)} kernels", flush=True)
@@ -1960,7 +2056,7 @@ def main():
     b1 = simulate(rng, N_CELLS, DIMS)
     b2 = simulate(rng, N_CELLS, DIMS, shift=0.8)
     path_kernels = [knn_cuda.chunk_max_scores, topk_cuda.topk_rows,
-                    rescore_cuda.rescore_subchunks]
+                    rescore_cuda.rescore_subchunks, knn_exact_cuda.knn_exact]
 
     phase_s = {0: build_s}
 
@@ -1994,8 +2090,9 @@ def main():
     par_line, par_launches = timed(16, phase_parallel, torch, np, bt, path_kernels, root,
                                    stores)
     del stores
+    k5 = timed(17, phase_k5, torch, np, knn_exact_cuda)
 
-    for entry in (k1, k2, k3):
+    for entry in (k1, k2, k3, k5):
         entry["launches"] = launches[entry["name"]]
         entry["launches_by_path"] = {
             "reduced_mnn": launches[entry["name"]],
@@ -2010,7 +2107,7 @@ def main():
                for path in ("quick_correct_csr", "cluster_mnn_csr", "mnn_correct_csr")},
             **{path: counts[entry["name"]] for path, counts in par_launches.items()}}
     k4["launches_by_path"] = {"pass1_precision_probe": k4["launches"]}
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
     print(json.dumps({"main_path": "reduced_mnn 2x100000x50 k=20 auto",
                       "seconds": seconds, "seconds_second_run": seconds_again,
                       "cells_per_s": 2 * N_CELLS / seconds,

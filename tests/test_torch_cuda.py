@@ -7,14 +7,17 @@ conftest):
 
 Each kernel is held against its plain version on the same card tensors:
 K2 exactly, K1 and K4 within 2^-20 of the query column's max |score|, K3
-within 2^-20 of the query row's max |score|, with the same -inf entries.
+within 2^-20 of the query row's max |score|, with the same -inf entries,
+K5 against ``_knn_tiled``: the same neighbours wherever the k-th and the
+(k+1)-th scores are not near-equal, distances within 1e-5 of the scores'
+terms, exact ties to the lower row bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
-from batchelor_torch.ops import knn_cuda, pass1_cuda, rescore_cuda, topk_cuda
-from batchelor_torch.ops.knn import query_knn
+from batchelor_torch.ops import knn_cuda, knn_exact_cuda, pass1_cuda, rescore_cuda, topk_cuda
+from batchelor_torch.ops.knn import _knn_tiled, query_knn
 
 pytestmark = pytest.mark.cuda
 
@@ -702,7 +705,8 @@ def test_two_pass_counters_of_an_auto_search(card):
         "knn/two_pass/searches": 1.0, "knn/two_pass/scores": float(nq * nd),
         "knn/two_pass/flops": float(2 * d * nq * nd),
         "knn/two_pass/bytes": float((nq + nd) * d * 4 + nq * k * 12),
-        "knn/exact/searches": 1.0, "knn/exact/scores": float(100 * n_valid),
+        "knn/exact/searches": 1.0, "knn/exact/fused": 1.0,
+        "knn/exact/scores": float(100 * n_valid),
         "knn/exact/flops": float(2 * d * 100 * n_valid),
         "knn/exact/bytes": float((100 + nd) * d * 4 + 100 * k * 12)}
 
@@ -749,3 +753,148 @@ def test_a_recorder_adds_no_host_synchronization(card):
     timed = bt.MetricsRecorder(device_time=True)
     assert syncs(timed) == plain
     assert timed.summary()["spans"]["fastmnn/call"]["device_ms"] > 0
+
+
+def _assert_knn_matches_tiled(idx, sq, q, x, k, valid):
+    """K5's (idx, sq) against _knn_tiled's on the same card tensors. The
+    rounding of a squared distance scales with its terms, |q|^2 + |x|^2:
+    every distance agrees within 1e-5 of that scale, and the neighbour sets
+    agree on every row whose k-th and (k+1)-th distances lie more than
+    eight ulps (2^-20) of it apart."""
+    want_i, want_sq = _knn_tiled(q, x, k + 1, valid)
+    qn = (q.double() ** 2).sum(1, keepdim=True)
+    scale = qn + (x.double() ** 2).sum(1)[want_i]
+    assert idx.dtype == torch.long and sq.dtype == torch.float32
+    assert idx.shape == sq.shape == (q.shape[0], k)
+    assert bool(((sq.double() - want_sq[:, :k].double()).abs() <= 1e-5 * scale[:, :k]).all())
+    assert bool(valid[idx].all())
+    apart = (want_sq[:, k].double() - want_sq[:, k - 1].double()) > 2.0**-20 * scale[:, k - 1]
+    assert bool(apart.float().mean() > 0.5)
+    got_sets = idx[apart].sort(1).values
+    want_sets = want_i[apart, :k].sort(1).values
+    assert torch.equal(got_sets, want_sets)
+
+
+@pytest.mark.parametrize("d", [2, 50, 100, 128])
+@pytest.mark.parametrize("k", [1, 20, 64])
+@pytest.mark.parametrize("nq,nd", [(1000, 3001), (77, 100), (300, 20_000)])
+def test_knn_exact_kernel_matches_tiled(d, k, nq, nd, card):
+    # ragged nq and nd; nd = 100 is less than one data tile; 300 x 20,000
+    # splits the data rows into ranges
+    q = torch.randn(nq, d, device="cuda", generator=card)
+    x = torch.randn(nd, d, device="cuda", generator=card)
+    valid = torch.ones(nd, device="cuda", dtype=torch.bool)
+    before = knn_exact_cuda.knn_exact.launches
+    idx, sq = knn_exact_cuda.knn_exact(q, x, k, valid)
+    torch.cuda.synchronize()
+    assert knn_exact_cuda.knn_exact.launches == before + 1
+    _assert_knn_matches_tiled(idx, sq, q, x, k, valid)
+
+
+@pytest.mark.parametrize("d,offset", [(50, 1), (50, 2), (51, 0), (51, 3), (64, 1), (33, 2)])
+def test_knn_exact_kernel_on_unaligned_data_and_odd_widths(d, offset, card):
+    # data that starts 4, 8 or 12 bytes past a 16-byte boundary (a view into
+    # a larger buffer) and odd widths: the tile copies' hand-copied ends and
+    # the single-width products
+    nq, nd, k = 333, 1999, 20
+    buf = torch.randn(nd * d + 4, device="cuda", generator=card)
+    x = buf[offset:offset + nd * d].view(nd, d)
+    assert x.data_ptr() % 16 == 4 * offset % 16
+    q = torch.randn(nq, d, device="cuda", generator=card)
+    valid = torch.ones(nd, device="cuda", dtype=torch.bool)
+    idx, sq = knn_exact_cuda.knn_exact(q, x, k, valid)
+    _assert_knn_matches_tiled(idx, sq, q, x, k, valid)
+
+
+@pytest.mark.parametrize("how", ["data_mask", "n_data_valid"])
+def test_knn_exact_kernel_over_masked_data(how, card):
+    nq, nd, d, k = 700, 5000, 50, 20
+    q = torch.randn(nq, d, device="cuda", generator=card)
+    x = torch.randn(nd, d, device="cuda", generator=card)
+    if how == "data_mask":
+        valid = torch.rand(nd, device="cuda", generator=card) < 0.4
+        kw = {"data_mask": valid}
+    else:
+        valid = torch.arange(nd, device="cuda") < 3333
+        kw = {"n_data_valid": 3333}
+    before = knn_exact_cuda.knn_exact.launches
+    res = query_knn(q, x, k, squared=True, **kw)
+    assert knn_exact_cuda.knn_exact.launches == before + 1
+    _assert_knn_matches_tiled(res.indices, res.distances, q, x, k, valid)
+
+
+@pytest.mark.parametrize("k", [20, 21, 64])
+def test_knn_exact_kernel_ties_go_to_the_lower_row(k, card):
+    # every data row three times over (copies 2,000 and 4,000 rows apart),
+    # so each neighbour comes with two exact ties; k = 20 cuts a group of
+    # copies, which must keep its lower rows
+    nb, d = 2000, 50
+    base = torch.randn(nb, d, device="cuda", generator=card)
+    x = torch.cat([base, base, base])
+    q = base[:500] + 0.05 * torch.randn(500, d, device="cuda", generator=card)
+    valid = torch.ones(3 * nb, device="cuda", dtype=torch.bool)
+    idx, sq = knn_exact_cuda.knn_exact(q, x, k, valid)
+    idx, sq = idx.cpu(), sq.cpu()
+    for r in range(q.shape[0]):
+        rows, dist = idx[r].tolist(), sq[r].tolist()
+        for p in range(1, k):
+            assert dist[p - 1] < dist[p] or (dist[p - 1] == dist[p] and rows[p - 1] < rows[p])
+        by_base = {}
+        for row, dv in zip(rows, dist):
+            by_base.setdefault(row % nb, []).append((row, dv))
+        for b, copies in by_base.items():
+            assert len({dv for _, dv in copies}) == 1          # bit for bit
+            assert sorted(row for row, _ in copies) == [b + nb * c for c in range(len(copies))]
+    want_i, _ = _knn_tiled(q, x, k, valid)
+    assert bool(((idx % nb) == (want_i.cpu() % nb)).float().mean() > 0.99)
+
+
+def test_knn_exact_kernel_is_deterministic_and_plan_blind(card, monkeypatch):
+    # the same bits on a repeat, and with the data rows in one range or many
+    q = torch.randn(2000, 50, device="cuda", generator=card)
+    x = torch.randn(30_000, 50, device="cuda", generator=card)
+    valid = torch.rand(30_000, device="cuda", generator=card) < 0.9
+    a = knn_exact_cuda.knn_exact(q, x, 20, valid)
+    b = knn_exact_cuda.knn_exact(q, x, 20, valid)
+    assert knn_exact_cuda.plan_ranges(2000, 30_000, 20, knn_exact_cuda._slots(0, 50, 20, 0))[0] > 1
+    monkeypatch.setattr(knn_exact_cuda, "plan_ranges", lambda nq, nd, k, slots: (1, -(-nd // 128)))
+    c = knn_exact_cuda.knn_exact(q, x, 20, valid)
+    for other in (b, c):
+        assert torch.equal(a[0], other[0]) and torch.equal(a[1], other[1])
+
+
+@pytest.mark.parametrize("case", ["fp64", "k65", "d129"])
+def test_exact_search_outside_k5_takes_the_tiled_path(case, card):
+    dtype, k, d = torch.float32, 20, 50
+    if case == "fp64":
+        dtype = torch.float64
+    elif case == "k65":
+        k = 65
+    else:
+        d = 129
+    q = torch.randn(300, d, device="cuda", generator=card, dtype=dtype)
+    x = torch.randn(2000, d, device="cuda", generator=card, dtype=dtype)
+    assert not knn_exact_cuda.takes(q.device, q.dtype, k, d)
+    before = knn_exact_cuda.knn_exact.launches
+    res = query_knn(q, x, k, squared=True)
+    assert knn_exact_cuda.knn_exact.launches == before
+    want_i, want_sq = _knn_tiled(q, x, k, torch.ones(2000, device="cuda", dtype=torch.bool))
+    assert torch.equal(res.indices, want_i) and torch.equal(res.distances, want_sq)
+    assert res.distances.dtype == (torch.float64 if case == "fp64" else torch.float32)
+
+
+def test_exact_counters_of_a_fused_search(card):
+    import batchelor_torch as bt
+
+    nq = nd = 47_250
+    d, k = 50, 20
+    q = torch.randn(nq, d, device="cuda", generator=card)
+    x = torch.randn(nd, d, device="cuda", generator=card)
+    rec = bt.MetricsRecorder()
+    with rec.activate():
+        query_knn(q, x, k, method="exact")
+    assert [r["name"] for r in rec.records] == ["knn/exact"]
+    assert rec.summary()["counters"] == {
+        "knn/exact/searches": 1.0, "knn/exact/fused": 1.0,
+        "knn/exact/scores": float(nq * nd), "knn/exact/flops": float(2 * d * nq * nd),
+        "knn/exact/bytes": float((nq + nd) * d * 4 + nq * k * 12)}
