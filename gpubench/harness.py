@@ -1,13 +1,18 @@
 """What a run of one cell needs, found by name: its configuration, traffic
-mix, limits and metrics (from ``BENCHMARK.json`` and the data files under
-``gpubench/``), the program's call, and the judgement of its outputs
-against the plain reference.
+mix, limits, entry module and metrics (from ``BENCHMARK.json`` and the
+files under ``gpubench/``), the program's call, and fastMNN's judgement of
+its outputs against the plain reference.
 
 A cell ``<config>.<traffic>`` of ``BENCHMARK.json`` reads
 ``gpubench/configs/<config>.json`` (the file its configuration names),
-``gpubench/traffic/<traffic>.json`` and ``gpubench/limits/<cell>.json``; a
-per-layer metric ``<name>`` is read by ``gpubench/metrics/<name>.py``. A
-later cell or metric adds those files and entries, and no code.
+``gpubench/traffic/<traffic>.json``, ``gpubench/limits/<cell>.json`` and
+``gpubench/entries/<entry>.py``, where ``<entry>`` is the traffic's
+``"entry"``, the program's function that the cell calls. The entry module
+makes the call's inputs from the seed, says what is judged of a call and
+judges it (``make_inputs``, ``output``, ``judge``, ``READINGS``; optionally
+``FAULTS`` with ``planted`` and ``control``, which ``readings.py`` reads).
+A per-layer metric ``<name>`` is read by ``gpubench/metrics/<name>.py``. A
+later cell, entry or metric adds those files and entries, and no code.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import json
 import math
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,7 +30,7 @@ import torch
 
 from gpubench import compare, reference
 
-__all__ = ["ROOT", "HERE", "Cell", "load_cell", "call_args", "program_output",
+__all__ = ["ROOT", "HERE", "Cell", "load_cell", "entry_module", "call_args", "program_output",
            "reference_outputs", "control_selection", "judge_outputs", "metric_reader"]
 
 HERE = Path(__file__).resolve().parent
@@ -40,6 +46,7 @@ class Cell:
     limits: Optional[Dict[str, float]]
     end_to_end: List[dict]
     per_layer: List[dict]
+    entry: ModuleType
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -47,22 +54,46 @@ def _applies(metric: dict, cell: str) -> bool:
 
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
-    """The cell ``name`` of ``root/BENCHMARK.json`` with its data files."""
+    """The cell ``name`` of ``root/BENCHMARK.json`` with its data files and
+    entry module, all under ``root/gpubench/``."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     w = cells[name]
+    here = root / HERE.name
     cfg_entry = next(c for c in bench["configs"] if c["name"] == w["config"])
     config = json.loads((root / cfg_entry["file"]).read_text())
-    traffic = json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())
-    limits_file = HERE / "limits" / f"{name}.json"
+    traffic = json.loads((here / "traffic" / f"{w['traffic']}.json").read_text())
+    limits_file = here / "limits" / f"{name}.json"
     limits = json.loads(limits_file.read_text()) if limits_file.exists() else None
+    entry = entry_module(traffic["entry"], here / "entries")
+    unknown = set(limits or ()) - set(entry.READINGS)
+    if unknown:
+        raise ValueError(f"{limits_file} limits {sorted(unknown)}, which the entry "
+                         f"{traffic['entry']!r} does not read (its READINGS: {list(entry.READINGS)})")
     return Cell(
         name=name, chips=int(w["chips"]), config=config, traffic=traffic, limits=limits,
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
+        entry=entry,
     )
+
+
+def _load(path: Path, module_name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def entry_module(entry: str, directory: Path = HERE / "entries") -> ModuleType:
+    """``directory/<entry>.py``: the inputs, output and judgement of the
+    program's function ``entry``."""
+    path = directory / f"{entry}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"the entry {entry!r} has no module: {path} is not there")
+    return _load(path, f"gpubench.entries.{entry}")
 
 
 def call_args(cell: Cell) -> dict:
@@ -149,8 +180,4 @@ def judge_outputs(cell: Cell, outputs: Dict[str, dict], inputs):
 
 def metric_reader(name: str):
     """``read(ctx)`` of ``gpubench/metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"gpubench.metrics.{name}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(HERE / "metrics" / f"{name}.py", f"gpubench.metrics.{name}").read

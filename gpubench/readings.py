@@ -4,18 +4,17 @@
     python3 gpubench/readings.py --workload <cell> --seeds 11,12,... \
         [--control 3] [--faults 3] [--out FILE]
 
-For each seed: the cell's batches, one call of the cell's entry with the
-cell's arguments (the timed path at the timed sizes), the plain reference
-(float64) following the call's pairs, and the program's numbers against
-it, with ``own_rows_err_p50`` against the reference's own merge, which
-chose its pairs itself. On the first ``--control``
-seeds also the control, the reference put in the program's place one
-precision below what the configuration states (TF32 products; the MNN
-searches' selection in fp8 where the traffic states bf16), against the
-reference; on the first ``--faults`` seeds the program with each fault of
-``gpubench/faults.py`` planted. One JSON line per reading; the last line
-gives, per number, the largest sound reading, the smallest control
-reading and each fault's smallest reading. Needs a card.
+For each seed: the cell's inputs and one call of the cell's entry with the
+cell's arguments (the timed path at the timed sizes), judged by the cell's
+entry module (``gpubench/entries/<entry>.py``) as a run judges it. On the
+first ``--control`` seeds also the entry module's ``control`` (for
+fastMNN, the reference put in the program's place one precision below
+what the configuration states: TF32 products, the MNN searches' selection
+in fp8 where the traffic states bf16), judged the same way; on the first
+``--faults`` seeds the program with each of the entry module's ``FAULTS``
+planted. One JSON line per reading; the last line gives, per number, the
+largest sound reading, the smallest control reading and each fault's
+smallest reading. Needs a card.
 """
 import argparse
 import json
@@ -38,13 +37,18 @@ def main(argv=None) -> int:
     import torch
 
     import batchelor_torch as bt
-    from gpubench import compare, faults, generator, harness
+    from gpubench import harness
 
     if not torch.cuda.is_available():
         print("readings: needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     cell = harness.load_cell(args.workload)
+    mod = cell.entry
+    for flag, needs in ((args.control, "control"), (args.faults, "planted")):
+        if flag and not hasattr(mod, needs):
+            print(f"readings: the entry module {mod.__file__} has no {needs}", file=sys.stderr)
+            return 2
     entry = getattr(bt, cell.traffic["entry"])
     kwargs = dict(harness.call_args(cell), device=dev)
     seeds = [int(s) for s in args.seeds.split(",")]
@@ -63,42 +67,37 @@ def main(argv=None) -> int:
             table.setdefault(key, {})
             table[key][k] = v if k not in table[key] else pick(table[key][k], v)
 
+    def read(side, out, inputs):
+        return mod.judge(cell, {side: out}, inputs)[1]
+
     for i, seed in enumerate(seeds):
-        inputs = generator.make_batches(cell.config, cell.traffic["input"], seed, dev)
+        inputs = mod.make_inputs(cell, seed, dev)
         t = time.perf_counter()
-        out = harness.program_output(entry(inputs, **kwargs))
+        out = mod.output(entry(inputs, **kwargs))
         call_s = time.perf_counter() - t
         t = time.perf_counter()
-        own, ref = harness.reference_outputs(cell, inputs, [None, out["pairs"]])
+        values = read("program", out, inputs)
         ref_s = time.perf_counter() - t
-        values = {**compare.readings(out, ref), **compare.own_readings(out, own)}
         emit({"workload": cell.name, "seed": seed, "side": "program", "call_s": call_s,
               "reference_s": ref_s, "readings": values})
         fold(sound, "program", values, max)
         del out
         if i < args.control:
             t = time.perf_counter()
-            ctl = harness.reference_outputs(cell, inputs, [None], "tf32",
-                                            harness.control_selection(cell))[0]
-            values = {**compare.readings(
-                ctl, harness.reference_outputs(cell, inputs, [ctl["pairs"]])[0]),
-                **compare.own_readings(ctl, own)}
+            values = read("control", mod.control(cell, inputs), inputs)
             emit({"workload": cell.name, "seed": seed, "side": "control",
                   "control_s": time.perf_counter() - t, "readings": values})
             fold(control, "control", values, min)
-            del ctl
         if i < args.faults:
-            for name in faults.FAULTS:
-                with faults.planted(name):
-                    out = harness.program_output(entry(inputs, **kwargs))
-                values = {**compare.readings(
-                    out, harness.reference_outputs(cell, inputs, [out["pairs"]])[0]),
-                    **compare.own_readings(out, own)}
+            for name in mod.FAULTS:
+                with mod.planted(name):
+                    out = mod.output(entry(inputs, **kwargs))
+                values = read(f"fault:{name}", out, inputs)
                 emit({"workload": cell.name, "seed": seed, "side": f"fault:{name}",
                       "readings": values})
                 fold(planted, name, values, min)
                 del out
-        del inputs, ref, own
+        del inputs
         torch.cuda.empty_cache()
     emit({"workload": cell.name, "summary": {"program_max": sound.get("program", {}),
                                              "control_min": control.get("control", {}),

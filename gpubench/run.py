@@ -3,15 +3,16 @@
 
     python3 gpubench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Makes the cell's batches on the card from the seed, calls the cell's entry
-once to warm every shape, then, with ``--trace 0``, calls it back to back
+Makes the cell's inputs on the card from the seed (its entry module,
+``gpubench/entries/<entry>.py``), calls the cell's entry once to warm
+every shape, then, with ``--trace 0``, calls it back to back
 for ``--seconds`` (a closed loop: one caller, each call ending in
 ``torch.cuda.synchronize()``, only whole calls in the window) and reports
 the cell's end-to-end metrics; with ``--trace 1`` it profiles a few calls
-and reports the per-layer metrics. Then it frees the program's state,
-runs the plain reference on the same batches and judges a sample of the
-window's outputs against it (one call drawn from the seed, and the last),
-and against the reference's own merge. Set-up's parts are printed first;
+and reports the per-layer metrics. Then it frees the program's state and
+the entry module judges a sample of the window's outputs (one call drawn
+from the seed, and the last) against the plain reference on the same
+inputs. Set-up's parts are printed first;
 the numbers compared, each beside its limit, are the last lines on
 standard error; the last line of standard output is the result. No card,
 or fewer cards than the cell asks for, is an error: nothing runs on the
@@ -68,17 +69,18 @@ def run_cell(cell, bt, seed: int, seconds: float, trace: bool, device, start: fl
     the host clock at the process's start; the card is not looked for."""
     import torch
 
-    from gpubench import generator, harness
+    from gpubench import harness
 
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     parts = {}
     t = time.perf_counter()
-    inputs = generator.make_batches(cell.config, cell.traffic["input"], seed, dev)
+    inputs = cell.entry.make_inputs(cell, seed, dev)
     sync()
     parts["data_s"] = time.perf_counter() - t
     entry = getattr(bt, cell.traffic["entry"])
+    output = cell.entry.output
     kwargs = dict(harness.call_args(cell), device=dev)
     n_cells = sum(int(b) for b in cell.config["batches"])
 
@@ -108,7 +110,7 @@ def run_cell(cell, bt, seed: int, seconds: float, trace: bool, device, start: fl
             c1 = time.perf_counter()
             times.append(c1 - c0)
             if draw.random() < 1.0 / len(times):         # one call drawn evenly
-                kept["drawn"] = harness.program_output(res)
+                kept["drawn"] = output(res)
             if c1 - w0 >= seconds:
                 break
         window_s = time.perf_counter() - w0
@@ -131,11 +133,11 @@ def run_cell(cell, bt, seed: int, seconds: float, trace: bool, device, start: fl
                 c1 = time.perf_counter()
                 times.append(c1 - c0)
                 if draw.random() < 1.0 / len(times):
-                    kept["drawn"] = harness.program_output(res)
+                    kept["drawn"] = output(res)
                 prof.step()             # the last one stops and exports the trace
             window_s = c1 - w0
     gc.unfreeze()
-    kept["last"] = harness.program_output(res)
+    kept["last"] = output(res)
     del res
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
@@ -149,8 +151,9 @@ def run_cell(cell, bt, seed: int, seconds: float, trace: bool, device, start: fl
             "peak_mem_gib": peak / 2 ** 30,
             "setup_s": setup_s,
         }
+        # "<quantity>.<part>" is <quantity> in the cells it lists, under a bound of its own
         for m in cell.end_to_end:
-            metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
+            metrics[m["name"]] = {"value": values[m["name"].split(".")[0]], "unit": m["unit"]}
     else:
         from gpubench.trace import read_chrome_trace
 
@@ -171,7 +174,7 @@ def run_cell(cell, bt, seed: int, seconds: float, trace: bool, device, start: fl
     if on_card:
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    correct, worst, checks, failed = harness.judge_outputs(cell, kept, inputs)
+    correct, worst, checks, failed = cell.entry.judge(cell, kept, inputs)
     reference_s = time.perf_counter() - t
 
     device_info = {"platform": "gpu" if on_card else dev.type,

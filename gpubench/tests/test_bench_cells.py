@@ -11,23 +11,36 @@ BENCH = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
+FASTMNN_READINGS = {"centers_err", "pairs_miss", "rows_err_p50", "rows_err_max", "own_rows_err_p50"}
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_cell_loads_with_its_files(cell):
     c = harness.load_cell(cell)
     assert c.chips == 1
     assert c.config["name"] == cell.split(".")[0]
-    assert sum(c.config["batches"]) > 0 and c.config["d"] == c.config["generator"]["rank"]
-    assert c.traffic["entry"] in ("fast_mnn", "reduced_mnn")
-    assert c.traffic["input"] in ("genes", "pcs")
-    args = harness.call_args(c)
-    assert args["k"] == c.config["k"]
+    assert sum(c.config["batches"]) > 0
+    # the traffic's entry finds its module by name
+    assert c.entry.__file__ == str(harness.HERE / "entries" / f"{c.traffic['entry']}.py")
+    for name in ("make_inputs", "output", "judge"):
+        assert callable(getattr(c.entry, name)), name
     assert c.limits, "every cell has its limits file"
-    # every limit is of a number that the comparison reads
-    assert set(c.limits) <= {"centers_err", "pairs_miss", "rows_err_p50", "rows_err_max",
-                             "own_rows_err_p50"}
-    assert ("centers_err" in c.limits) == (c.traffic["input"] == "genes")
-    assert {m["name"] for m in c.end_to_end} >= {"cells_per_s", "peak_mem_gib", "setup_s"}
+    # every limit is of a number that the entry's judgement reads
+    assert set(c.limits) <= set(c.entry.READINGS)
+    if hasattr(c.entry, "FAULTS"):
+        assert c.entry.FAULTS and callable(c.entry.planted)
+    # each quantity under its own name or a "<quantity>.<part>" of it
+    assert {m["name"].split(".")[0] for m in c.end_to_end} >= {"cells_per_s", "peak_mem_gib", "setup_s"}
     assert c.per_layer
+    if c.traffic["entry"] in ("fast_mnn", "reduced_mnn"):
+        assert c.config["d"] == c.config["generator"]["rank"]
+        assert c.traffic["input"] in ("genes", "pcs")
+        args = harness.call_args(c)
+        assert args["k"] == c.config["k"]
+        assert set(c.limits) <= FASTMNN_READINGS
+        assert ("centers_err" in c.limits) == (c.traffic["input"] == "genes")
+        pca_read = {"centers_err"} if c.traffic["input"] == "genes" else set()
+        assert set(c.entry.READINGS) == FASTMNN_READINGS - {"centers_err"} | pca_read
 
 
 def test_names_and_metric_readers():

@@ -22,6 +22,7 @@ def test_harness_loads_no_jax():
     code = ("import sys; sys.path.insert(0, '.')\n"
             "import batchelor_torch\n"
             "from gpubench import run, readings, harness, faults, trace, work, compare, generator\n"
+            "for e in ('fast_mnn', 'reduced_mnn'): harness.entry_module(e)\n"
             + metrics)
     loaded = _top_level_after(code)
     assert "batchelor_torch" in loaded
