@@ -2,8 +2,10 @@
 
 Counterpart of ``batchelor_tpu/correct/diagnostics.py`` (reference
 R/mnnDeltaVariance.R:95-201, R/diagnostics-cluster.R:57-83). The trend fit
-is host numpy, a copy of the JAX package's; the per-gene moments over MNN
-pairs and the abundance statistics run on the port's device.
+is host numpy, a copy of the JAX package's but for the floor under its
+smoothed log-ratio (scran has none; see ``fit_trend_var``); the per-gene
+moments over MNN pairs and the abundance statistics run on the port's
+device.
 """
 from __future__ import annotations
 
@@ -100,12 +102,11 @@ def fit_trend_var(
         if pos.sum() >= 4:
             curve = _fit_parametric_curve(x[pos], y[pos])
     if curve is not None:
-        # smooth the log-ratio residuals, like scran's loess on the ratio
+        # smooth the log-ratio residuals, like scran's loess on the ratio;
+        # the smooth is not floored, so the trend may fall below its curve
+        # as scran's does (the JAX package floors it at 0)
         pos = (x > 0) & (y > 0)
-        ratio_trend = fit_trend_var(
-            x[pos], np.log(y[pos] / curve(x[pos])), span=span,
-            parametric=False,
-        )
+        ratio_trend = _local_linear(x[pos], np.log(y[pos] / curve(x[pos])), span)
 
         def trend_parametric(q):
             q = np.atleast_1d(np.asarray(q, dtype=np.float64))
@@ -114,6 +115,13 @@ def fit_trend_var(
 
         return trend_parametric
 
+    smooth = _local_linear(x, y, span)
+    return lambda q: np.maximum(smooth(q), 0.0)
+
+
+def _local_linear(x: np.ndarray, y: np.ndarray, span: float) -> Callable[[np.ndarray], np.ndarray]:
+    """The tricube-weighted local linear smoother of y on x (at least two
+    points), unfloored."""
     order = np.argsort(x)
     xs, ys = x[order], y[order]
     n = xs.size
@@ -121,11 +129,13 @@ def fit_trend_var(
 
     def trend(q):
         """Tricube-weighted local linear fit, vectorized over query points
-        in chunks (the windowed gather is (chunk, window); 30k genes at
-        span 0.3 stays ~40 MB instead of a 30k-iteration Python loop)."""
+        in chunks: each chunk's (chunk, window) arrays hold ~2^16 elements
+        (0.5 MB) and stay in the core's cache; at 2^22 (32 MB) they went
+        through memory and a fit of 12,303 genes took about twice as long.
+        A query's numbers do not depend on the chunk it falls in."""
         q = np.atleast_1d(np.asarray(q, dtype=np.float64))
         out = np.empty(q.shape)
-        step = max(1, (1 << 22) // max(window, 1))
+        step = max(1, (1 << 16) // max(window, 1))
         offs = np.arange(window)
         for c0 in range(0, q.size, step):
             qi = q[c0 : c0 + step]                       # (C,)
@@ -146,7 +156,7 @@ def fit_trend_var(
             slope = np.where(den > 1e-12, num / np.maximum(den, 1e-12), 0.0)
             fit = ym + slope * (qi - xm)
             out[c0 : c0 + step] = np.where(sw > 0, fit, yw.mean(axis=1))
-        return np.maximum(out, 0.0)
+        return out
 
     return trend
 

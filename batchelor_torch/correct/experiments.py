@@ -34,7 +34,7 @@ from ..ops.lowrank import LowRankOp
 from ..ops.normalization import multi_batch_norm
 from ..ops.stats import combine_var, get_top_hvgs, model_gene_var
 from ..utils.batching import generate_cell_names, intersect_rows
-from ..utils.telemetry import trace_span
+from ..utils.telemetry import get_recorder, trace_span
 from .dispatch import BatchelorParams, batch_correct
 from .fast_mnn import MNNResult
 
@@ -377,7 +377,9 @@ def quick_correct(
     HVG modelling -> batch_correct on top HVGs
     (reference quickCorrect, R/quickCorrect.R:66-120). Every step runs on
     ``device`` (default: the CUDA device; raises without one unless
-    ``device="cpu"``)."""
+    ``device="cpu"``). Counter: ``quickcorrect/hvgs``, the HVGs handed
+    to the correction (``hvg_n`` unless fewer genes have positive ``bio``).
+    """
     dev = resolve_device(device)
     mats = _as_matrices(inputs, assay_type, dev)
     if gene_names is not None:
@@ -406,6 +408,10 @@ def quick_correct(
         else:
             dec = combine_var(list(precomputed)) if len(mats) > 1 else precomputed[0]
         hvgs = get_top_hvgs(dec, n=hvg_n)
+
+        rec = get_recorder()
+        if rec is not None:
+            rec.add("quickcorrect/hvgs", float(len(hvgs)))
 
     with trace_span("quickcorrect/correct"):
         corrected = batch_correct(

@@ -25,6 +25,7 @@ import batchelor_torch as bt
 import batchelor_tpu as bj
 from batchelor_torch import convert
 from test_torch_fast_mnn_gene import _assert_same as _same_mnn
+from jax_trend import port_trend_in_jax
 
 torch.set_num_threads(2)
 
@@ -163,12 +164,15 @@ def test_quick_correct_matches_jax(single, counts):
     if single:
         order = np.random.default_rng(3).permutation(170)
         x, batch = np.concatenate([c1, c2])[order], np.repeat([1, 0], [80, 90])[order]
-        j = bj.quick_correct(jnp.asarray(x), batch, params=bj.FastMNNParams(d=10), **p)
+        with port_trend_in_jax():
+            j = bj.quick_correct(jnp.asarray(x), batch, params=bj.FastMNNParams(d=10), **p)
         t = bt.quick_correct(x, batch, params=bt.FastMNNParams(d=10), device="cpu", **p)
     else:
         names = [[f"g{i}" for i in range(100)], [f"g{i}" for i in range(99, -1, -1)]]
         c2r = c2[:, ::-1]                      # the same genes in another order
-        j = bj.quick_correct([c1, c2r], params=bj.FastMNNParams(d=10), gene_names=names, **p)
+        with port_trend_in_jax():
+            j = bj.quick_correct([c1, c2r], params=bj.FastMNNParams(d=10), gene_names=names,
+                                 **p)
         t = bt.quick_correct([c1, c2r], params=bt.FastMNNParams(d=10), gene_names=names,
                              device="cpu", **p)
     assert np.array_equal(j.hvgs, t.hvgs) and t.hvgs.shape == (40,)

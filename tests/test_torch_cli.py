@@ -3,7 +3,8 @@ package's (``python -m batchelor_tpu``), on the CPU.
 
 Both CLIs run in this process through their ``main(argv)`` on the same
 store, and once through ``python -m`` in a subprocess; the port's with
-``--device cpu``. What is compared, and how closely:
+``--device cpu``, the JAX package's on the port's trend fit
+(``jax_trend.py``). What is compared, and how closely:
   * ``import-dense`` writes byte-identical stores and ``info`` prints the
     same line;
   * ``quick-correct``: the same hvgs.npy, batch.npy and merge_info.json;
@@ -28,6 +29,7 @@ import torch
 
 from batchelor_torch import __main__ as tcli
 from batchelor_tpu import __main__ as jcli
+from jax_trend import port_trend_in_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STORE_FILES = ("header.json", "data.f32", "indices.i32", "indptr.i64")
@@ -72,8 +74,9 @@ def quick_outputs(stores):
     args = ["--hvgs", "40", "--d", "8", "--k", "10", "--knn", "exact", "--block-rows", "64"]
     _run(tcli.main, ["quick-correct", "--input", *paths["port"], "--output",
                      str(root / "port_qc"), "--device", "cpu", *args])
-    _run(jcli.main, ["quick-correct", "--input", *paths["jax"], "--output",
-                     str(root / "jax_qc"), *args])
+    with port_trend_in_jax():
+        _run(jcli.main, ["quick-correct", "--input", *paths["jax"], "--output",
+                         str(root / "jax_qc"), *args])
     return root / "port_qc", root / "jax_qc"
 
 
@@ -104,8 +107,9 @@ def test_correct_cli_matches_jax(stores):
     args = ["--method", "rescale", "--subset-hvgs", "30"]
     _run(tcli.main, ["correct", "--input", *paths["port"], "--output", str(root / "port_c"),
                      "--device", "cpu", *args])
-    _run(jcli.main, ["correct", "--input", *paths["jax"], "--output", str(root / "jax_c"),
-                     *args])
+    with port_trend_in_jax():
+        _run(jcli.main, ["correct", "--input", *paths["jax"], "--output", str(root / "jax_c"),
+                         *args])
     got, want = np.load(root / "port_c" / "corrected.npy"), np.load(root / "jax_c" /
                                                                      "corrected.npy")
     assert got.shape == (270, 30)

@@ -5,8 +5,12 @@ Covers the dense cases of tests/test_diagnostics_api.py that are not about
 the dispatch API or the pipelines (those are in test_torch_api.py): each
 runs the batchelor_tpu function and its batchelor_torch counterpart on the
 same numpy inputs. Tolerances: the trend fit is the same host numpy code
-and must agree bit for bit; the variance model and delta variance 1e-10
-(fp64 reductions in another order); the HVG ranking exactly; the abundance
+but for the floor the JAX package puts under its smoothed log-ratio, and
+must agree bit for bit where that floor does not bind and to 1e-12 of the
+JAX package's curve and smoother without it; the comparisons downstream of
+the trend run the JAX package on the port's trend (``jax_trend.py``): the
+variance model and delta variance 1e-10 (fp64 reductions in another
+order); the HVG ranking exactly; the abundance
 p-values and variances 1e-12 (``torch.special.gammaincc`` against
 ``jax.scipy.special.gammaincc``); the blocked delta variance 1e-5 against
 the JAX package's (which sums each float32 chunk in float32; the port sums
@@ -23,6 +27,7 @@ from batchelor_torch.ops import stats as ts
 from batchelor_tpu.correct import diagnostics as jd
 from batchelor_tpu.correct.fast_mnn import fast_mnn as j_fast_mnn
 from batchelor_tpu.ops import stats as js
+from jax_trend import port_trend_in_jax
 
 torch.set_num_threads(2)
 
@@ -51,20 +56,43 @@ def _same_table(j, t, tol):
             assert np.allclose(a[f], b[f], atol=tol, rtol=0, equal_nan=True), f
 
 
+def _held_to_jax(x, y, q, **kw):
+    """The port's parametric trend at ``q`` against the JAX package's: bit
+    for bit where the JAX package's floor of the smoothed log-ratio does not
+    bind, and everywhere to 1e-12 of the JAX package's curve times exp of
+    its smoother run on the log-ratio lifted clear of that floor (the
+    smoother is linear in y). Returns how many queries the floor held up."""
+    ours, floored = td.fit_trend_var(x, y, **kw)(q), jd.fit_trend_var(x, y, **kw)(q)
+    pos = (x > 0) & (y > 0)
+    curve = jd._fit_parametric_curve(x[pos], y[pos])
+    ratio = np.log(y[pos] / curve(x[pos]))
+    lift = 100.0 * (1.0 + np.ptp(ratio))
+    lifted = jd.fit_trend_var(x[pos], ratio + lift, parametric=False, **kw)(q)
+    assert (lifted > 0).all()
+    assert np.allclose(ours, curve(q) * np.exp(lifted - lift), rtol=1e-12, atol=0), kw
+    free = ours >= curve(q)
+    assert np.array_equal(ours[free], floored[free]), kw
+    assert (ours[~free] < floored[~free]).all(), kw
+    return int((~free).sum())
+
+
 def test_fit_trend_var_is_the_jax_code(rng):
     x = np.linspace(0.5, 5, 200)
     y = 2 * x + rng.normal(scale=0.05, size=200)
     q = np.array([1.0, 2.5, 4.0])
-    assert np.array_equal(td.fit_trend_var(x, y)(q), jd.fit_trend_var(x, y)(q))
+    held = _held_to_jax(x, y, q)
     assert np.allclose(td.fit_trend_var(x, y)(q), 2 * q, rtol=0.1)
     # the scran shape y = a x / (x^n + b), its hump and its decay past the data
     a, b, n = 3.0, 2.0, 2.0
     x = np.exp(rng.uniform(np.log(0.05), np.log(8.0), size=400))
     y = a * x / (x**n + b) * np.exp(rng.normal(scale=0.15, size=400))
     q = np.concatenate([np.exp(np.linspace(np.log(0.1), np.log(6.0), 25)), [20.0, 40.0]])
-    for kw in ({}, {"span": 0.5}, {"parametric": False}):
-        ours, theirs = td.fit_trend_var(x, y, **kw)(q), jd.fit_trend_var(x, y, **kw)(q)
-        assert np.array_equal(ours, theirs), kw
+    for kw in ({}, {"span": 0.5}):
+        held += _held_to_jax(x, y, q, **kw)
+    # the trend falls below its curve somewhere, as scran's may
+    assert held > 0
+    assert np.array_equal(td.fit_trend_var(x, y, parametric=False)(q),
+                          jd.fit_trend_var(x, y, parametric=False)(q))
     assert np.allclose(td.fit_trend_var(x, y)(q[:25]), a * q[:25] / (q[:25]**n + b), rtol=0.15)
     # degenerate inputs fall back to the smoother, or to a constant
     x3, y3 = np.array([1.0, 2.0, 3.0]), np.array([0.5, -0.1, 0.4])
@@ -77,7 +105,8 @@ def test_model_gene_var_and_hvgs_match_jax(rng):
     x = rng.normal(size=(200, 50))
     x[:, 7] *= 5                     # a highly variable gene
     for block in (None, np.repeat([1, 0], 100)[rng.permutation(200)]):
-        j = js.model_gene_var(jnp.asarray(x), block=block)
+        with port_trend_in_jax():
+            j = js.model_gene_var(jnp.asarray(x), block=block)
         t = ts.model_gene_var(x, block=block, device="cpu")
         for f in ("mean", "total", "tech", "bio"):
             assert np.allclose(getattr(j, f), getattr(t, f), atol=1e-10, rtol=0), f
@@ -85,7 +114,8 @@ def test_model_gene_var_and_hvgs_match_jax(rng):
             assert np.array_equal(js.get_top_hvgs(j, **kw), ts.get_top_hvgs(t, **kw)), kw
         assert 7 in ts.get_top_hvgs(t, n=5).tolist()
     parts = [ts.model_gene_var(x[:100], device="cpu"), ts.model_gene_var(x[100:], device="cpu")]
-    jparts = [js.model_gene_var(jnp.asarray(x[:100])), js.model_gene_var(jnp.asarray(x[100:]))]
+    with port_trend_in_jax():
+        jparts = [js.model_gene_var(jnp.asarray(x[:100])), js.model_gene_var(jnp.asarray(x[100:]))]
     j, t = js.combine_var(jparts), ts.combine_var(parts)
     for f in ("mean", "total", "tech", "bio"):
         assert np.allclose(getattr(j, f), getattr(t, f), atol=1e-10, rtol=0), f
@@ -97,7 +127,8 @@ def test_model_gene_var_and_hvgs_match_jax(rng):
                                  "cos_norm": True, "trend_span": 0.5}])
 def test_mnn_delta_variance_matches_jax(kw, delta_inputs):
     b1, b2, pairs = delta_inputs
-    j = jd.mnn_delta_variance([jnp.asarray(b1), jnp.asarray(b2)], pairs, **kw)
+    with port_trend_in_jax():
+        j = jd.mnn_delta_variance([jnp.asarray(b1), jnp.asarray(b2)], pairs, **kw)
     t = td.mnn_delta_variance([b1, b2], pairs, device="cpu", **kw)
     _same_table(j, t, 1e-10)
     if not kw:
@@ -118,7 +149,8 @@ def test_blocked_delta_variance_matches_jax_and_dense(kw, rng):
     p0 = np.stack([rng.integers(0, 70, 50), 70 + rng.integers(0, 90, 50)], axis=1)
     p1 = np.stack([rng.integers(0, 70, 33), 70 + rng.integers(0, 90, 33)], axis=1)
     # chunks smaller than the pair counts, one of them short
-    j = jd.mnn_delta_variance_blocked([b1, b2], [p0, p1], chunk_pairs=16, **kw)
+    with port_trend_in_jax():
+        j = jd.mnn_delta_variance_blocked([b1, b2], [p0, p1], chunk_pairs=16, **kw)
     t = td.mnn_delta_variance_blocked([b1, b2], [p0, p1], chunk_pairs=16, device="cpu", **kw)
     _same_table(j, t, 1e-5)
     dense = td.mnn_delta_variance([b1.astype(np.float64), b2.astype(np.float64)], [p0, p1],

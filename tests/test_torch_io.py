@@ -34,6 +34,7 @@ import batchelor_torch as bt
 import batchelor_tpu as bj
 from batchelor_tpu.io import csr as jcsr
 from batchelor_tpu.ops.pca_outofcore import multi_batch_pca_csr as j_pca_csr
+from jax_trend import port_trend_in_jax
 
 torch.set_num_threads(2)
 
@@ -214,8 +215,9 @@ def qc_pair():
     c1 = rng.poisson(4.0, size=(150, 80)).astype(np.float32)
     c2 = rng.poisson(9.0, size=(120, 80)).astype(np.float32)
     kw = dict(hvg_n=40, d=8, k=10, block_rows=64, knn_method="exact")
-    theirs = bj.quick_correct_csr([jcsr.CSRCells.from_dense(c1),
-                                   jcsr.CSRCells.from_dense(c2)], **kw)
+    with port_trend_in_jax():
+        theirs = bj.quick_correct_csr([jcsr.CSRCells.from_dense(c1),
+                                       jcsr.CSRCells.from_dense(c2)], **kw)
     mine = bt.quick_correct_csr([bt.CSRCells.from_dense(c1), bt.CSRCells.from_dense(c2)],
                                 device="cpu", **kw)
     return c1, c2, kw, theirs, mine

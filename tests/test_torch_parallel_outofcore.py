@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_trend import port_trend_in_jax
 from torch_worlds import run_world
 
 WORLDS = (1, 3, 8)
@@ -203,8 +204,9 @@ def test_quick_correct_csr_mesh_matches_single_and_jax(worlds, inputs):
 
     single = _qc(quick_correct_csr([CSRCells.from_dense(c) for c in inputs["counts"]],
                                    device="cpu", **QC))
-    theirs = bj.quick_correct_csr([jcsr.CSRCells.from_dense(c) for c in inputs["counts"]],
-                                  mesh=make_cells_mesh(8), **QC)
+    with port_trend_in_jax():
+        theirs = bj.quick_correct_csr([jcsr.CSRCells.from_dense(c) for c in inputs["counts"]],
+                                      mesh=make_cells_mesh(8), **QC)
     theirs = {"hvgs": np.asarray(theirs.hvgs),
               "corrected": np.asarray(theirs.corrected.corrected),
               "rotation": np.asarray(theirs.corrected.rotation),

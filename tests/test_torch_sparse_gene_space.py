@@ -36,6 +36,7 @@ import batchelor_tpu as bj
 from batchelor_torch.correct import cluster_mnn as tc
 from batchelor_tpu.correct import cluster_mnn as jc
 from batchelor_tpu.io.csr import CSRCells as JCSR
+from jax_trend import port_trend_in_jax
 
 torch.set_num_threads(2)
 
@@ -246,7 +247,8 @@ def test_blocked_delta_variance_csr_matches_jax_and_dense(rng, cos_norm):
     mine, theirs = _stores(b1, b2)
     kw = dict(cos_norm=cos_norm, chunk_pairs=16, subset_row=np.arange(0, 40, 3))
     csr = bt.mnn_delta_variance_blocked(mine, [p0, p1], device="cpu", **kw)
-    ref = bj.mnn_delta_variance_blocked(theirs, [p0, p1], **kw)
+    with port_trend_in_jax():
+        ref = bj.mnn_delta_variance_blocked(theirs, [p0, p1], **kw)
     dense = bt.mnn_delta_variance_blocked([b1, b2], [p0, p1], device="cpu", **kw)
     for f in ("mean", "total", "trend", "adjusted"):
         assert np.allclose(getattr(csr, f), getattr(ref, f), atol=1e-5, rtol=0), f

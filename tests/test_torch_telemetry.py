@@ -159,3 +159,20 @@ def test_summary_keeps_its_fields_and_dumps_records():
     dumped = json.loads(rec.dump_json())
     assert dumped["records"][1] == {**rec.records[1], "attrs": {"step": 2}}
     assert [r["call"] for r in dumped["records"]] == [0, 0, 1, 1, 2, 2, 3]
+
+
+def test_quick_correct_spans_and_counters():
+    rng = np.random.default_rng(5)
+    rates = rng.gamma(1.0, 3.0, size=60)
+    counts = [rng.poisson(rates * (1 + 0.5 * b), size=(n, 60)).astype(np.float32)
+              for b, n in enumerate(SIZES)]
+    rec = bt.MetricsRecorder()
+    with rec.activate():
+        res = bt.quick_correct(counts, hvg_n=30, params=bt.FastMNNParams(d=D, k=K), device="cpu")
+    top = [r["name"] for r in rec.records if r["parent"] is None]
+    assert top == ["quickcorrect/normalize", "quickcorrect/model_gene_var", "quickcorrect/correct"]
+    call = next(r for r in rec.records if r["name"] == "fastmnn/call")
+    assert rec.records[call["parent"]]["name"] == "quickcorrect/correct"
+    assert {k: v for k, v in rec.counters.items() if k.startswith("quickcorrect/")} == {
+        "quickcorrect/hvgs": 30.0}
+    assert len(res.hvgs) == 30
