@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("chunk_max", "topk_rows", "rescore_chunks", "pass1_norm", "knn_exact")
+KERNELS = ("chunk_max", "topk_rows", "rescore_chunks", "pass1_norm", "knn_exact",
+           "trend_smooth")
 
 _lock = threading.Lock()
 _libs: dict = {}

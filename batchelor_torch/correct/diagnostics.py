@@ -2,13 +2,16 @@
 
 Counterpart of ``batchelor_tpu/correct/diagnostics.py`` (reference
 R/mnnDeltaVariance.R:95-201, R/diagnostics-cluster.R:57-83). The trend fit
-is host numpy, a copy of the JAX package's but for the floor under its
-smoothed log-ratio (scran has none; see ``fit_trend_var``); the per-gene
-moments over MNN pairs and the abundance statistics run on the port's
-device.
+of host arrays is host numpy, a copy of the JAX package's but for the floor
+under its smoothed log-ratio (scran has none; see ``fit_trend_var``); of
+moments on the card it runs there in float64, its smoother the kernel K6.
+The per-gene moments over MNN pairs and the abundance statistics run on
+the port's device.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence
 
@@ -17,7 +20,9 @@ import torch
 
 from ..device import DeviceLike, as_tensor, resolve_device
 from ..io.csr import CSRCells, row_l2_norms
+from ..ops import trend_cuda
 from ..ops.cosine_norm import apply_cosine_norm, cosine_norm
+from ..utils.telemetry import get_recorder, trace_span
 
 __all__ = [
     "fit_trend_var",
@@ -73,11 +78,11 @@ def _fit_parametric_curve(x: np.ndarray, y: np.ndarray):
 
 
 def fit_trend_var(
-    means: np.ndarray,
-    variances: np.ndarray,
+    means,
+    variances,
     span: float = 0.3,
     parametric: bool = True,
-) -> Callable[[np.ndarray], np.ndarray]:
+) -> Callable:
     """Mean-variance trend fit (scran::fitTrendVar equivalent).
 
     The reference delegates to scran's trend (R/mnnDeltaVariance.R:158),
@@ -87,45 +92,83 @@ def fit_trend_var(
     tricube-weighted local linear regression (loess degree 1) on the
     log-ratio. ``parametric=False`` falls back to smoothing the raw
     (mean, variance) pairs directly.
+
+    Moments in CUDA tensors are fitted on their card in float64
+    (``_fit_trend_tensors``, the smoother K6) and give a trend that takes
+    and returns CUDA tensors; arrays and CPU tensors take the host numpy
+    below. Each fit is a span ``trend/fit`` (``path`` ``card`` or ``host``,
+    ``genes``, the ``points`` fitted and the smoother's ``window``) and
+    counts in ``trend/card_fits`` or ``trend/host_fits``; each call of the
+    returned trend, where the smoother runs, is a span ``trend/evaluate``.
     """
+    if isinstance(means, torch.Tensor) and trend_cuda.takes(means.device):
+        return _fit_trend_tensors(means, variances, span, parametric)
     means = np.asarray(means, dtype=np.float64)
     variances = np.asarray(variances, dtype=np.float64)
     ok = np.isfinite(means) & np.isfinite(variances)
     x, y = means[ok], variances[ok]
-    if x.size < 2:
-        const = float(np.nanmean(y)) if y.size else 0.0
-        return lambda q: np.full(np.asarray(q).shape, const)
+    pos = (x > 0) & (y > 0)
+    curved = parametric and pos.sum() >= 4
+    with _recorded_fit("host", means.size, int(pos.sum()) if curved else x.size, span):
+        if x.size < 2:
+            const = float(np.nanmean(y)) if y.size else 0.0
+            return lambda q: np.full(np.asarray(q).shape, const)
 
-    curve = None
-    if parametric:
-        pos = (x > 0) & (y > 0)
-        if pos.sum() >= 4:
-            curve = _fit_parametric_curve(x[pos], y[pos])
-    if curve is not None:
-        # smooth the log-ratio residuals, like scran's loess on the ratio;
-        # the smooth is not floored, so the trend may fall below its curve
-        # as scran's does (the JAX package floors it at 0)
-        pos = (x > 0) & (y > 0)
-        ratio_trend = _local_linear(x[pos], np.log(y[pos] / curve(x[pos])), span)
+        curve = _fit_parametric_curve(x[pos], y[pos]) if curved else None
+        if curve is not None:
+            # smooth the log-ratio residuals, like scran's loess on the ratio;
+            # the smooth is not floored, so the trend may fall below its curve
+            # as scran's does (the JAX package floors it at 0)
+            ratio_trend = _local_linear(x[pos], np.log(y[pos] / curve(x[pos])), span)
 
-        def trend_parametric(q):
-            q = np.atleast_1d(np.asarray(q, dtype=np.float64))
-            out = curve(q) * np.exp(ratio_trend(q))
-            return np.maximum(np.where(np.isfinite(out), out, 0.0), 0.0)
+            def trend_parametric(q):
+                q = np.atleast_1d(np.asarray(q, dtype=np.float64))
+                out = curve(q) * np.exp(ratio_trend(q))
+                return np.maximum(np.where(np.isfinite(out), out, 0.0), 0.0)
 
-        return trend_parametric
+            return _evaluated("host", trend_parametric)
 
-    smooth = _local_linear(x, y, span)
-    return lambda q: np.maximum(smooth(q), 0.0)
+        smooth = _local_linear(x, y, span)
+        return _evaluated("host", lambda q: np.maximum(smooth(q), 0.0))
+
+
+@contextlib.contextmanager
+def _recorded_fit(path: str, genes: int, points: int, span: float):
+    """One fit's span ``trend/fit`` and its count in ``trend/<path>_fits``."""
+    rec = get_recorder()
+    if rec is not None:
+        rec.add(f"trend/{path}_fits")
+    window = _window(span, points) if points >= 2 else 0
+    with trace_span("trend/fit", path=path, genes=int(genes), points=int(points), window=window):
+        yield
+
+
+def _evaluated(path: str, trend: Callable) -> Callable:
+    """``trend`` with each call a span ``trend/evaluate``."""
+    def evaluate(q):
+        with trace_span("trend/evaluate", path=path):
+            return trend(q)
+
+    return evaluate
+
+
+def _window(span: float, n: int) -> int:
+    """The smoother's window over n points."""
+    return max(int(np.ceil(span * n)), 2)
 
 
 def _local_linear(x: np.ndarray, y: np.ndarray, span: float) -> Callable[[np.ndarray], np.ndarray]:
     """The tricube-weighted local linear smoother of y on x (at least two
     points), unfloored."""
     order = np.argsort(x)
-    xs, ys = x[order], y[order]
+    return _sorted_local_linear(x[order], y[order], _window(span, x.size))
+
+
+def _sorted_local_linear(xs: np.ndarray, ys: np.ndarray,
+                         window: int) -> Callable[[np.ndarray], np.ndarray]:
+    """The smoother of ys on xs, sorted by xs, over windows of ``window``
+    points: the plain version of K6 (``ops/trend_cuda.py``)."""
     n = xs.size
-    window = max(int(np.ceil(span * n)), 2)
 
     def trend(q):
         """Tricube-weighted local linear fit, vectorized over query points
@@ -159,6 +202,112 @@ def _local_linear(x: np.ndarray, y: np.ndarray, span: float) -> Callable[[np.nda
         return out
 
     return trend
+
+
+def _fit_trend_tensors(means: torch.Tensor, variances, span: float,
+                       parametric: bool) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``fit_trend_var`` in float64 on the device of ``means``: the host's
+    steps in torch, each parametric grid one batched evaluation
+    (``_grid_winner``), the smoother ``trend_cuda.local_linear`` (K6 on the
+    card) over the points in the order of a stable sort. The host reads two
+    things a fit: the counts of finite and of positive points, which size
+    the arrays and pick the degenerate branches, and whether the curve's
+    least squares came out finite. The trend it returns takes and gives
+    tensors on that device."""
+    dev = means.device
+    x = means.reshape(-1).to(torch.float64)
+    y = torch.as_tensor(variances, device=dev).reshape(-1).to(torch.float64)
+    ok = torch.isfinite(x) & torch.isfinite(y)
+    pos = ok & (x > 0) & (y > 0)
+    n_ok, n_pos = torch.stack([ok.sum(), pos.sum()]).tolist()
+    curved = parametric and n_pos >= 4
+    path = "card" if trend_cuda.takes(dev) else "host"
+    with _recorded_fit(path, x.numel(), n_pos if curved else n_ok, span):
+        if n_ok < 2:
+            const = float(y[ok].mean()) if n_ok else 0.0
+            return lambda q: torch.full(torch.as_tensor(q).shape, const, dtype=torch.float64,
+                                        device=dev)
+
+        def query(q):
+            return torch.atleast_1d(torch.as_tensor(q, device=dev).to(torch.float64))
+
+        if curved:
+            xs, ys = _sorted_points(x, y, pos, n_pos)
+            a, b, n, sse = _parametric_curve_tensors(xs, ys)
+            if bool(torch.isfinite(sse)):
+                def curve(q):
+                    qq = q.clamp_min(0.0)
+                    return a * qq / (qq**n + b)
+
+                ratio = torch.log(ys / curve(xs))
+                window = _window(span, n_pos)
+
+                def trend_parametric(q):
+                    q = query(q)
+                    out = curve(q) * torch.exp(trend_cuda.local_linear(xs, ratio, q, window))
+                    return torch.where(torch.isfinite(out), out, 0.0).clamp_min(0.0)
+
+                return _evaluated(path, trend_parametric)
+
+        xs, ys = _sorted_points(x, y, ok, n_ok)
+        window = _window(span, n_ok)
+        return _evaluated(
+            path, lambda q: trend_cuda.local_linear(xs, ys, query(q), window).clamp_min(0.0))
+
+
+def _sorted_points(x: torch.Tensor, y: torch.Tensor, keep: torch.Tensor, count: int):
+    """The ``count`` points that ``keep`` marks, sorted by x (stable)."""
+    key, order = torch.sort(torch.where(keep, x, torch.inf), stable=True)
+    return key[:count], y[order[:count]]
+
+
+@functools.lru_cache(maxsize=8)
+def _grid_steps(device: torch.device):
+    """``_fit_parametric_curve``'s grid constants, from the same numpy, on
+    ``device``: the exponents, the coarse and the refined steps of b, and
+    0..8 for the refined exponents."""
+    return tuple(torch.as_tensor(v, device=device) for v in (
+        np.linspace(0.5, 4.0, 15), np.exp(np.linspace(-7.0, 7.0, 29)),
+        np.exp(np.linspace(-0.7, 0.7, 9)), np.arange(9, dtype=np.float64)))
+
+
+def _parametric_curve_tensors(xs: torch.Tensor, ys: torch.Tensor):
+    """``_fit_parametric_curve`` on 4 or more positive points sorted by x,
+    on their device: its grids and its winners, with no host read. Returns
+    (a, b, n, sse), one-element tensors."""
+    n_grid, steps, steps2, ar9 = _grid_steps(xs.device)
+    lx, ly = torch.log(xs), torch.log(ys)
+    m = xs.numel()
+    med = (xs[(m - 1) // 2] + xs[m // 2]) / 2            # np.median of sorted points
+    b_grid = med ** float(np.linspace(0.5, 4.0, 15).mean()) * steps
+    _, _, b, n = _grid_winner(xs, lx, ly, n_grid, b_grid)
+    # np.linspace(max(n - 0.3, 0.1), n + 0.3, 9), rounded as numpy rounds it
+    start, stop = (n - 0.3).clamp_min(0.1), n + 0.3
+    n_grid2 = torch.cat([ar9[:8] * ((stop - start) / 8) + start, stop])
+    sse, la, b, n = _grid_winner(xs, lx, ly, n_grid2, b * steps2)
+    return torch.exp(la), b, n, sse
+
+
+def _grid_winner(x, lx, ly, n_grid: torch.Tensor, b_grid: torch.Tensor):
+    """The host loop of ``_fit_parametric_curve``'s ``solve`` over n_grid x
+    b_grid as one (n, b, point) evaluation: la = mean(ly - lx + pen), then
+    sse = sum((ly - (la + lx - pen))^2), pen = log(x^n + b), and its winner
+    (``_first_strict_min`` in n-outer order). Returns the winner's (sse,
+    la, b, n), one-element tensors."""
+    pen = torch.log((x ** n_grid[:, None])[:, None, :] + b_grid[None, :, None])
+    la = (ly - lx + pen).mean(-1)
+    sse = (ly - (la[..., None] + lx - pen)).square().sum(-1).reshape(-1)
+    i = _first_strict_min(sse).reshape(1)
+    nb = b_grid.numel()
+    return (sse.index_select(0, i), la.reshape(-1).index_select(0, i),
+            b_grid.index_select(0, i % nb), n_grid.index_select(0, i // nb))
+
+
+def _first_strict_min(v: torch.Tensor) -> torch.Tensor:
+    """The index that a loop keeping the first strict minimum of v picks:
+    a NaN never displaces a number, and a NaN first stays."""
+    key = torch.where(torch.isnan(v), torch.inf, v)
+    return torch.where(torch.isnan(v[0]), 0, torch.argmin(key))
 
 
 @dataclass

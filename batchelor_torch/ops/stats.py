@@ -3,9 +3,9 @@
 Counterpart of ``batchelor_tpu/ops/stats.py``: stand-ins for the scran
 machinery that quickCorrect leans on (reference R/quickCorrect.R:88-114):
 modelGeneVar -> combineVar -> getTopHVGs. Means and variances are
-reductions on the tensors' device; the mean-variance trend is the host
-smoother of ``correct/diagnostics.py::fit_trend_var``, and the ranking a
-stable numpy sort on the host.
+reductions on the tensors' device, and so is the mean-variance trend
+(``correct/diagnostics.py::fit_trend_var``: on the card in float64, on the
+CPU its host numpy); the ranking is a stable numpy sort on the host.
 """
 from __future__ import annotations
 
@@ -58,11 +58,16 @@ def model_gene_var(
     results = []
     for idx in blocks:
         sub = x if idx is None else x[as_tensor(idx, dev, torch.long)]
-        mean = sub.mean(0).cpu().numpy()
-        total = torch.var(sub, dim=0, correction=1).cpu().numpy()
-        tech = fit_trend_var(mean, total, span=span)(mean)
+        mean = sub.mean(0)
+        total = torch.var(sub, dim=0, correction=1)
+        tech = torch.as_tensor(fit_trend_var(mean, total, span=span)(mean), device=dev)
         results.append(GeneVarResult(mean=mean, total=total, tech=tech, bio=total - tech))
-    return combine_var(results)
+    dec = combine_var(results)
+    # one copy to the host; mean and total keep their type (fp64 holds them exactly)
+    host = torch.stack([dec.mean.double(), dec.total.double(), dec.tech, dec.bio]).cpu()
+    return GeneVarResult(mean=host[0].to(dec.mean.dtype).numpy(),
+                         total=host[1].to(dec.total.dtype).numpy(),
+                         tech=host[2].numpy(), bio=host[3].numpy())
 
 
 def combine_var(results: Sequence[GeneVarResult]) -> GeneVarResult:

@@ -81,10 +81,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      the card (Poisson of the simulation's log-means, 4 cell types, batch 2
      shifted), hvg_n = 2,000, FastMNNParams(d=50, knn_method="auto"),
      correct_all: first and second call with the seconds of its
-     normalization, variance model and correction, K1, K2, K3 and K5 on the
-     launch counters, one call profiled; then the card against the CPU at
-     2 x 2,000 x 500 in fp64: the same HVGs, identical pairs, corrected
-     within 1e-6 x max|corrected| after sign alignment;
+     normalization, variance model and correction, K1, K2, K3, K5 and K6
+     (the trend fits) on the launch counters, one call profiled; then the
+     card against the CPU at 2 x 2,000 x 500 in fp64: the same HVGs,
+     identical pairs, corrected within 1e-6 x max|corrected| after sign
+     alignment;
  13. cluster_mnn on bench.py config 4's atlas (8 x 100,000 cells x 500
      genes, log1p |x| of the simulation, its labels as clusters): first
      and second call, K5 on the launch counter (the nearest-centroid
@@ -158,7 +159,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      (47,250 queries over 36,000 of the left's cells): the same neighbours
      on every row whose k-th and (k+1)-th plain distances lie more than
      2^-20 of their terms apart, every distance within 1e-5 of its terms;
-     each shape's ms, the plain version's and the bound by fp32 FMAs.
+     each shape's ms, the plain version's and the bound by fp32 FMAs;
+ 18. kernel K6 (trend_cuda.local_linear, the trend fit's smoother on the
+     card) against its plain version (diagnostics._sorted_local_linear)
+     on the same sorted points: each batch's smoothed log-ratio as the
+     card's fit_trend_var makes it from the moments of phase 12's
+     normalized counts (~5,000 points, W ~1,500) and of 2 x 5,000 cells
+     x 12,303 genes (the scib_immune_human_counts cell's width, W ~3,690),
+     queried at every gene's mean and at tied, out-of-range and
+     non-finite values: within 1e-10 of max |ys| + |plain|; each
+     shape's ms, the plain version's (host numpy), the same chunked
+     smoother in torch on the card, and the bound by fp64 flops.
 It prints each phase's seconds, the build time, one {"kernels": [...]} line with each kernel's
 launches on each path, times (median of CUDA-event timings), bound and
 library yardstick, one line for each path's seconds, the card's name and
@@ -184,6 +195,7 @@ PROBE_N = 98_304               # knn_pass1_precision_probe.py's N
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
 FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores, same source
+FP64_FLOP_PER_S = 33.5e12      # fp64 outside the tensor cores, same source
 K1_TOL = 2.0 ** -20
 PAIR_JACCARD_MIN = 0.97
 FAST_AUTO_JACCARD_MIN = 0.80   # bf16 selection on fast_mnn's crowded PCs (phase 7)
@@ -1138,8 +1150,9 @@ def phase_quick_correct(torch, np, bt, path_kernels):
             seconds = time.perf_counter() - t0
         if run == "first":
             launches = read_counts(path_kernels)
-            check(ran(launches, TWO_PASS + ("knn_exact",)),
-                  f"K1, K2 and K3 ran, and K5 in the tricube searches: {launches}")
+            check(ran(launches, TWO_PASS + ("knn_exact", "local_linear")),
+                  f"K1, K2 and K3 ran, K5 in the tricube searches and K6 in the trend "
+                  f"fits: {launches}")
         spans = {k: sum(v) for k, v in rec.spans.items()}
         split = {"normalize_s": spans.get("quickcorrect/normalize", 0.0),
                  "model_gene_var_s": spans.get("quickcorrect/model_gene_var", 0.0),
@@ -2036,6 +2049,123 @@ def phase_k5(torch, np, knn_exact_cuda):
     }
 
 
+TREND_SPAN = 0.3               # fit_trend_var's default span
+CELL_GENES = 12_303            # phase 18: scib_immune_human_counts' genes
+K6_FLOPS_A_PAIR = 24           # fp64 flops a query and window point, both passes
+
+
+def k6_bound_ms(nq, window):
+    """K6's fp64 flops at the card's fp64 rate."""
+    return nq * window * K6_FLOPS_A_PAIR / FP64_FLOP_PER_S * 1e3
+
+
+def k6_operands(torch, mean, total, span=TREND_SPAN):
+    """(sorted positive means, their log-ratio to the fitted curve, window):
+    what the card's fit_trend_var hands K6 for one batch's moments."""
+    from batchelor_torch.correct import diagnostics as d
+
+    x, y = mean.double(), total.double()
+    pos = torch.isfinite(x) & torch.isfinite(y) & (x > 0) & (y > 0)
+    n_pos = int(pos.sum())
+    xs, ys = d._sorted_points(x, y, pos, n_pos)
+    a, b, n, _ = d._parametric_curve_tensors(xs, ys)
+    return xs, torch.log(ys / (a * xs / (xs**n + b))), d._window(span, n_pos)
+
+
+def torch_local_linear(torch, xs, ys, q, window, chunk=1 << 24):
+    """The plain smoother's chunked (queries, window) arithmetic written in
+    torch on the card: the yardstick K6 replaces."""
+    n = xs.numel()
+    offs = torch.arange(window, device=xs.device)
+    out = torch.empty_like(q)
+    step = max(1, chunk // window)
+    for c0 in range(0, q.numel(), step):
+        qi = q[c0:c0 + step]
+        lo = (torch.searchsorted(xs, qi) - window // 2).clamp(0, n - window)
+        idx = lo[:, None] + offs
+        xw, yw = xs[idx], ys[idx]
+        dist = (xw - qi[:, None]).abs()
+        h = dist.amax(1, keepdim=True).clamp_min(1e-12)
+        w = (1 - (dist / h).clamp_max(1.0) ** 3) ** 3
+        sw = w.sum(1)
+        sw_safe = sw.clamp_min(1e-300)
+        xm = (w * xw).sum(1) / sw_safe
+        ym = (w * yw).sum(1) / sw_safe
+        dx = xw - xm[:, None]
+        den = (w * dx**2).sum(1)
+        num = (w * dx * (yw - ym[:, None])).sum(1)
+        slope = torch.where(den > 1e-12, num / den.clamp_min(1e-12), 0.0)
+        out[c0:c0 + step] = torch.where(sw > 0, ym + slope * (qi - xm), yw.mean(1))
+    return out
+
+
+def phase_k6(torch, np, bt, trend_cuda):
+    """K6 against its plain version on the trend fits' own operands; returns its entry."""
+    from batchelor_torch.correct.diagnostics import _sorted_local_linear
+
+    print(f"phase 18: trend_smooth (K6) against its plain version, the smoothed log-ratio of "
+          f"2 x {QC_N:,} x {QC_GENES:,} and 2 x 5,000 x {CELL_GENES:,} counts", flush=True)
+    entries = []
+    max_err = 0.0
+    for label, n, genes in (("quick_correct_phase_12", QC_N, QC_GENES),
+                            ("scib_counts_width", 5_000, CELL_GENES)):
+        counts = quick_counts(torch, n, genes)
+        logs = bt.multi_batch_norm(counts, device="cuda").logcounts
+        del counts
+        moments = [(lg.mean(0), torch.var(lg, dim=0, correction=1)) for lg in logs]
+        del logs
+        for b, (mean, total) in enumerate(moments):
+            xs, ys, window = k6_operands(torch, mean, total)
+            q = mean.double()
+            # tied (every 7th point), out-of-range and non-finite queries beside the genes'
+            extra = torch.tensor([-1.0, 0.0, float("nan"), float("inf"), float("-inf")],
+                                 dtype=torch.float64, device="cuda")
+            probes = torch.cat([q, xs[::7], xs[[0, -1]], xs[-1:] + 1.0, extra])
+            got = trend_cuda.local_linear(xs, ys, probes, window).cpu().numpy()
+            xs_h, ys_h, probes_h = (t.cpu().numpy() for t in (xs, ys, probes))
+            plain = _sorted_local_linear(xs_h, ys_h, window)
+            want = plain(probes_h)
+            yard = torch_local_linear(torch, xs, ys, probes, window).cpu().numpy()
+            err = float((np.abs(got - want) / (np.abs(ys_h).max() + np.abs(want))).max())
+            check(bool(np.isfinite(got).all()) and err <= 1e-10,
+                  f"K6 {label} batch {b}: {probes.numel()} queries over {xs.numel()} points, "
+                  f"W = {window}, within 1e-10 of max|ys| + |plain| ({err:.3g})")
+            yard_err = float((np.abs(yard - want) / (np.abs(ys_h).max() + np.abs(want))).max())
+            check(yard_err <= 1e-10, f"the torch yardstick {label} batch {b} within 1e-10 of "
+                                     f"the plain version ({yard_err:.3g})")
+            max_err = max(max_err, err)
+            q_h = q.cpu().numpy()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                plain(q_h)
+            plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+            nq = q.numel()
+            entry = {"label": f"{label}_batch_{b}", "queries": nq, "points": int(xs.numel()),
+                     "window": window,
+                     "ms": cuda_ms(torch, lambda: trend_cuda.local_linear(xs, ys, q, window), 20),
+                     "plain_ms": plain_ms,
+                     "torch_ms": cuda_ms(torch, lambda: torch_local_linear(torch, xs, ys, q,
+                                                                           window), 5),
+                     "bound_ms": k6_bound_ms(nq, window)}
+            entry["fp64_peak_pct"] = 100.0 * entry["bound_ms"] / entry["ms"]
+            entries.append(entry)
+            print(f"  {entry['label']}: {nq} queries x {xs.numel()} points, W = {window}: "
+                  f"K6 {entry['ms']:.4f} ms ({entry['fp64_peak_pct']:.1f}% of the fp64 peak), "
+                  f"plain {plain_ms:.1f} ms, torch on the card {entry['torch_ms']:.3f} ms, "
+                  f"bound {entry['bound_ms']:.4f} ms", flush=True)
+        del moments
+    main = max(entries, key=lambda e: e["queries"] * e["window"])
+    return {
+        "name": "local_linear", "route": "cuda", "source": "batchelor_torch/csrc/trend_smooth.cu",
+        "replaces": "batchelor_torch/correct/diagnostics.py::_sorted_local_linear on the host",
+        "launches": None, "max_rel_err": max_err,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "operations (fp64)", "library_ms": main["torch_ms"],
+        "library": "the plain smoother's chunked arithmetic in torch on the card",
+        "shape": [main["queries"], main["points"], main["window"]], "other_shapes": entries,
+    }
+
+
 def main():
     import torch
 
@@ -2047,7 +2177,8 @@ def main():
 
     import batchelor_torch as bt
     from batchelor_torch import _build
-    from batchelor_torch.ops import knn_cuda, knn_exact_cuda, pass1_cuda, rescore_cuda, topk_cuda
+    from batchelor_torch.ops import (knn_cuda, knn_exact_cuda, pass1_cuda, rescore_cuda, topk_cuda,
+                                     trend_cuda)
 
     build_s = _build.build()
     print(f"build: {build_s:.3f} s for {len(_build.KERNELS)} kernels", flush=True)
@@ -2056,7 +2187,8 @@ def main():
     b1 = simulate(rng, N_CELLS, DIMS)
     b2 = simulate(rng, N_CELLS, DIMS, shift=0.8)
     path_kernels = [knn_cuda.chunk_max_scores, topk_cuda.topk_rows,
-                    rescore_cuda.rescore_subchunks, knn_exact_cuda.knn_exact]
+                    rescore_cuda.rescore_subchunks, knn_exact_cuda.knn_exact,
+                    trend_cuda.local_linear]
 
     phase_s = {0: build_s}
 
@@ -2091,8 +2223,9 @@ def main():
                                    stores)
     del stores
     k5 = timed(17, phase_k5, torch, np, knn_exact_cuda)
+    k6 = timed(18, phase_k6, torch, np, bt, trend_cuda)
 
-    for entry in (k1, k2, k3, k5):
+    for entry in (k1, k2, k3, k5, k6):
         entry["launches"] = launches[entry["name"]]
         entry["launches_by_path"] = {
             "reduced_mnn": launches[entry["name"]],
@@ -2107,7 +2240,7 @@ def main():
                for path in ("quick_correct_csr", "cluster_mnn_csr", "mnn_correct_csr")},
             **{path: counts[entry["name"]] for path, counts in par_launches.items()}}
     k4["launches_by_path"] = {"pass1_precision_probe": k4["launches"]}
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)
     print(json.dumps({"main_path": "reduced_mnn 2x100000x50 k=20 auto",
                       "seconds": seconds, "seconds_second_run": seconds_again,
                       "cells_per_s": 2 * N_CELLS / seconds,

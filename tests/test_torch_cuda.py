@@ -10,7 +10,8 @@ K2 exactly, K1 and K4 within 2^-20 of the query column's max |score|, K3
 within 2^-20 of the query row's max |score|, with the same -inf entries,
 K5 against ``_knn_tiled``: the same neighbours wherever the k-th and the
 (k+1)-th scores are not near-equal, distances within 1e-5 of the scores'
-terms, exact ties to the lower row bit for bit.
+terms, exact ties to the lower row bit for bit; K6 and the card's trend fit
+against the host's numpy within 1e-10 (fp64 sums in another order).
 """
 import numpy as np
 import pytest
@@ -898,3 +899,160 @@ def test_exact_counters_of_a_fused_search(card):
         "knn/exact/searches": 1.0, "knn/exact/fused": 1.0,
         "knn/exact/scores": float(nq * nd), "knn/exact/flops": float(2 * d * nq * nd),
         "knn/exact/bytes": float((nq + nd) * d * 4 + nq * k * 12)}
+
+
+def _stable_local_linear(x, y, span):
+    """The host smoother with tied means in a stable order, the order the
+    card sorts them in (numpy's default sort leaves ties in no set order)."""
+    from batchelor_torch.correct import diagnostics
+
+    order = np.argsort(x, kind="stable")
+    return diagnostics._sorted_local_linear(x[order], y[order], diagnostics._window(span, x.size))
+
+
+def _k6_case(case):
+    """(xs, ys, q, window) of one K6 case, numpy fp64, xs sorted (stable)."""
+    rng = np.random.default_rng(61)
+    n, window = 5000, 1500
+    x = np.exp(rng.normal(size=n))
+    if case == "tied_means":
+        x = np.round(rng.uniform(0, 10, size=n), 1)        # 101 values, distinct ys
+    elif case == "zero_weights":
+        x = np.repeat([5.0, 6.0, 7.0], [60, 60, 80])        # windows all at one distance
+        n, window = x.size, 40
+    elif case == "window_2":
+        window = 2
+    elif case == "window_n":
+        n, window = 700, 700
+        x = x[:n]
+    y = rng.normal(size=n) + np.log(x + 1.0)
+    order = np.argsort(x, kind="stable")
+    xs, ys = x[order], y[order]
+    q = np.concatenate([x[:300], rng.uniform(xs[0], xs[-1], 300), xs[[0, -1]],
+                        [xs[0] - 1.0, xs[0] - 1e-9, xs[-1] + 1e-9, xs[-1] + 50.0, 0.0, -3.0]])
+    if case == "tied_means":
+        q = np.concatenate([q, np.arange(0, 10.05, 0.1)])
+    elif case == "zero_weights":
+        q = np.array([3.0, 5.0, 5.5, 6.0, 6.5, 7.0, 9.0])
+    elif case == "non_finite":
+        q = np.concatenate([q, [np.nan, np.inf, -np.inf, np.nan]])
+    return xs, ys, q, window
+
+
+@pytest.mark.parametrize("case", ["random", "tied_means", "zero_weights", "window_2", "window_n",
+                                  "non_finite"])
+def test_trend_smooth_kernel_matches_plain(case, card):
+    """K6 against the plain smoother on the same sorted points: within
+    1e-10 of the scale of ys and of the value (sums in another order)."""
+    from batchelor_torch.correct import diagnostics
+    from batchelor_torch.ops import trend_cuda
+
+    xs, ys, q, window = _k6_case(case)
+    want = diagnostics._sorted_local_linear(xs, ys, window)(q)
+    before = trend_cuda.local_linear.launches
+    t = [torch.from_numpy(a).cuda() for a in (xs, ys, q)]
+    got = trend_cuda.local_linear(*t, window)
+    torch.cuda.synchronize()
+    assert trend_cuda.local_linear.launches == before + 1
+    assert got.dtype == torch.float64 and got.shape == q.shape and got.is_cuda
+    got = got.cpu().numpy()
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    tol = 1e-10 * (np.abs(ys).max() + np.abs(want))
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("case", ["parametric", "not_parametric", "few_positive", "one_finite",
+                                  "none_finite", "non_finite_moments"])
+def test_card_trend_fit_matches_host(case, card):
+    """fit_trend_var on CUDA tensors against the host's numpy (ties in the
+    card's stable order) on every branch, at queries inside, outside and
+    beyond the data, non-finite ones too: within 1e-10 of the host trend's
+    largest value, as CUDA float64."""
+    from unittest import mock
+
+    import batchelor_torch as bt
+    from batchelor_torch.correct import diagnostics
+
+    rng = np.random.default_rng(62)
+    x = np.exp(rng.uniform(np.log(0.01), np.log(50.0), size=3000))
+    y = 3.0 * x / (x**1.5 + 2.0) * np.exp(rng.normal(scale=0.2, size=3000))
+    kw = {"parametric": case != "not_parametric"}
+    if case == "few_positive":
+        x[3:], kw = -x[3:], {"span": 0.5}
+    elif case == "one_finite":
+        x[1:] = np.nan
+    elif case == "none_finite":
+        y[:] = np.inf
+    elif case == "non_finite_moments":
+        x[::7], y[::11], y[::13] = np.nan, np.inf, 0.0
+    q = np.concatenate([x[:500], [0.0, -1.0, 1e-6, 200.0, np.nan, np.inf, -np.inf]])
+    with mock.patch.object(diagnostics, "_local_linear", _stable_local_linear):
+        want = diagnostics.fit_trend_var(x, y, **kw)(q)
+    rec = bt.MetricsRecorder()
+    with rec.activate():
+        fit = diagnostics.fit_trend_var(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(), **kw)
+        got = fit(torch.from_numpy(q).cuda())
+    assert rec.counters == {"trend/card_fits": 1.0}
+    assert got.is_cuda and got.dtype == torch.float64 and got.shape == q.shape
+    got = got.cpu().numpy()
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-10 * max(np.abs(want).max(), 1e-300), case
+
+
+@pytest.fixture(scope="module")
+def counts_cell():
+    """The scib_immune_human_counts configuration's counts on the card at one
+    seed, and the configuration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gpubench import harness
+
+    cell = harness.load_cell("scib_immune_human_counts.quick_correct")
+    return cell.config, cell.entry.draw_counts(cell.config, 2**31 + 301, torch.device("cuda"))
+
+
+def test_card_trend_fit_matches_host_on_the_cell(counts_cell):
+    """The card's fit against the host's on each batch's own moments of the
+    quick_correct cell: tech within 1e-10 of its RMS (ties in the card's
+    stable order), and the same 2,000 HVGs as the host's as it stands."""
+    from unittest import mock
+
+    import batchelor_torch as bt
+    from batchelor_torch.correct import diagnostics
+    from batchelor_torch.ops.stats import GeneVarResult, combine_var, get_top_hvgs
+
+    cfg, counts = counts_cell
+    logs = bt.multi_batch_norm(counts, min_mean=float(cfg["min_mean"])).logcounts
+    decs = {"card": [], "host": []}
+    for lg in logs:
+        mean, total = lg.mean(0), torch.var(lg, dim=0, correction=1)
+        m, v = mean.cpu().numpy(), total.cpu().numpy()
+        with mock.patch.object(diagnostics, "_local_linear", _stable_local_linear):
+            want = diagnostics.fit_trend_var(m, v)(m)
+        got = diagnostics.fit_trend_var(mean, total)(mean)
+        assert got.is_cuda and got.dtype == torch.float64
+        got = got.cpu().numpy()
+        assert np.abs(got - want).max() <= 1e-10 * np.sqrt(np.mean(want**2))
+        host = diagnostics.fit_trend_var(m, v)(m)
+        for name, tech in (("card", got), ("host", host)):
+            decs[name].append(GeneVarResult(mean=m, total=v, tech=tech, bio=v - tech))
+    hvg_n = int(cfg["hvg_n"])
+    card, host = (get_top_hvgs(combine_var(decs[k]), n=hvg_n) for k in ("card", "host"))
+    assert len(card) == hvg_n and set(card.tolist()) == set(host.tolist())
+
+
+def test_quick_correct_fits_every_trend_on_the_card(counts_cell):
+    import batchelor_torch as bt
+
+    cfg, counts = counts_cell
+    rec = bt.MetricsRecorder()
+    with rec.activate():
+        res = bt.quick_correct(counts, hvg_n=int(cfg["hvg_n"]))
+    assert rec.counters["trend/card_fits"] == len(counts) == 10
+    assert "trend/host_fits" not in rec.counters
+    fits = [r for r in rec.records if r["name"] == "trend/fit"]
+    assert [r["attrs"]["path"] for r in fits] == ["card"] * 10
+    assert all(r["attrs"]["genes"] == cfg["genes"] and r["attrs"]["window"] >= 2 for r in fits)
+    assert res.dec.mean.dtype == res.dec.total.dtype == np.float32
+    assert res.dec.tech.dtype == res.dec.bio.dtype == np.float64
+    assert len(res.hvgs) == cfg["hvg_n"]

@@ -101,6 +101,111 @@ def test_fit_trend_var_is_the_jax_code(rng):
     assert np.allclose(td.fit_trend_var(x3[:1], y3[:1])(np.array([2.0, 9.0])), 0.5)
 
 
+def _stable_local_linear(x, y, span):
+    """The host smoother with tied means in a stable order, the order the
+    tensor fit sorts them in (numpy's default sort leaves ties in no set
+    order)."""
+    order = np.argsort(x, kind="stable")
+    return td._sorted_local_linear(x[order], y[order], td._window(span, x.size))
+
+
+def _trend_case(case):
+    """(means, variances, kwargs, queries) of one branch of the trend fit:
+    fp32 log-count moments with tied means (distinct variances among them),
+    and queries inside, outside and beyond the data, non-finite ones too."""
+    rng = np.random.default_rng(63)
+    lam = np.exp(rng.normal(size=600))
+    logs = np.log1p(rng.poisson(lam, size=(200, 600))).astype(np.float32)
+    x, y = logs.mean(0).astype(np.float64), logs.var(0, ddof=1).astype(np.float64)
+    kw = {"span": 0.5} if case == "span" else {"parametric": case != "not_parametric"}
+    if case == "few_positive":
+        x[3:] = -x[3:]
+    elif case == "one_finite":
+        x[1:] = np.nan
+    elif case == "none_finite":
+        y[:] = np.inf
+    elif case == "non_finite_moments":
+        x[::7], y[::11], y[::13] = np.nan, np.inf, 0.0
+    q = np.concatenate([x, [0.0, -1.0, 1e-6, 200.0, np.nan, np.inf, -np.inf]])
+    return x, y, kw, q
+
+
+TREND_CASES = ["parametric", "not_parametric", "span", "few_positive", "one_finite", "none_finite",
+               "non_finite_moments"]
+
+
+@pytest.mark.parametrize("case", TREND_CASES)
+def test_fit_trend_var_of_arrays_and_cpu_tensors_is_the_host_code(case):
+    """Arrays and CPU tensors take the host numpy, bit for bit, as one host
+    fit of the recorder's."""
+    import batchelor_torch as bt
+
+    x, y, kw, q = _trend_case(case)
+    want = td.fit_trend_var(x, y, **kw)(q)
+    rec = bt.MetricsRecorder()
+    with rec.activate():
+        got = td.fit_trend_var(torch.from_numpy(x), torch.from_numpy(y), **kw)(torch.from_numpy(q))
+    assert isinstance(got, np.ndarray) and np.array_equal(got, want)
+    assert rec.counters == {"trend/host_fits": 1.0}
+    fit = rec.records[0]
+    assert fit["name"] == "trend/fit" and fit["attrs"]["path"] == "host"
+    assert fit["attrs"]["genes"] == x.size
+
+
+@pytest.mark.parametrize("case", TREND_CASES)
+def test_tensor_trend_fit_matches_the_host(case):
+    """The card's steps (the grids as batched evaluations, the stable sort,
+    the degenerate branches) on CPU tensors, with the plain smoother,
+    against the host numpy with ties in the same stable order: within
+    1e-12 of the host trend's largest value."""
+    from unittest import mock
+
+    x, y, kw, q = _trend_case(case)
+    with mock.patch.object(td, "_local_linear", _stable_local_linear):
+        want = td.fit_trend_var(x, y, **kw)(q)
+    fit = td._fit_trend_tensors(torch.from_numpy(x), torch.from_numpy(y), kw.get("span", 0.3),
+                                kw.get("parametric", True))
+    got = fit(torch.from_numpy(q))
+    assert got.dtype == torch.float64 and got.shape == q.shape
+    got = got.numpy()
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-12 * max(np.abs(want).max(), 1e-300), case
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_first_strict_min_is_the_host_loop(seed):
+    rng = np.random.default_rng(seed)
+    v = rng.choice([0.5, 1.0, 2.0, np.inf, np.nan], size=(50, 9))
+    v[0, 0] = np.nan                          # a NaN first stays
+    v[1, :3] = np.inf                         # the first of equal infinities
+    for row in v:
+        best = None
+        for i, s in enumerate(row):
+            if best is None or s < row[best]:
+                best = i
+        assert int(td._first_strict_min(torch.from_numpy(row))) == best, row
+
+
+@pytest.mark.parametrize("block", [None, "two"])
+def test_model_gene_var_keeps_its_types_and_numbers(block, rng):
+    """On the CPU: mean and total in the input's float32, tech and bio in
+    float64, each bit for bit the host fit on the moments' arrays."""
+    x = np.log1p(rng.poisson(np.exp(rng.normal(size=80)), size=(150, 80))).astype(np.float32)
+    block = None if block is None else np.repeat([1, 0], 75)[rng.permutation(150)]
+    got = ts.model_gene_var(x, block=block, device="cpu")
+    parts = []
+    for idx in ([np.arange(150)] if block is None else [np.nonzero(block == b)[0] for b in (0, 1)]):
+        sub = torch.from_numpy(x[idx])
+        mean = sub.mean(0).numpy()
+        total = torch.var(sub, dim=0, correction=1).numpy()
+        tech = td.fit_trend_var(mean, total)(mean)
+        parts.append(ts.GeneVarResult(mean=mean, total=total, tech=tech, bio=total - tech))
+    want = ts.combine_var(parts)
+    for f, dtype in (("mean", np.float32), ("total", np.float32), ("tech", np.float64),
+                     ("bio", np.float64)):
+        assert getattr(got, f).dtype == dtype and np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
 def test_model_gene_var_and_hvgs_match_jax(rng):
     x = rng.normal(size=(200, 50))
     x[:, 7] *= 5                     # a highly variable gene

@@ -176,3 +176,9 @@ def test_quick_correct_spans_and_counters():
     assert {k: v for k, v in rec.counters.items() if k.startswith("quickcorrect/")} == {
         "quickcorrect/hvgs": 30.0}
     assert len(res.hvgs) == 30
+    # one host fit a batch on the CPU, each inside the variance model's span
+    assert {k: v for k, v in rec.counters.items() if k.startswith("trend/")} == {
+        "trend/host_fits": float(len(SIZES))}
+    fits = [r for r in rec.records if r["name"] == "trend/fit"]
+    assert [rec.records[r["parent"]]["name"] for r in fits] == ["quickcorrect/model_gene_var"] * 3
+    assert all(r["attrs"]["path"] == "host" and r["attrs"]["genes"] == 60 for r in fits)
