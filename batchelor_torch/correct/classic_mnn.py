@@ -10,7 +10,8 @@ Returns per-gene corrected values, unlike fastMNN's low-dimensional output.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import functools
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,12 +28,10 @@ from ..utils.batching import (
     check_restrictions,
     combine_restrict,
     divide_into_batches,
-    generate_cell_names,
-    reindex_pairings,
-    restore_original_order,
+    finish_output,
 )
-from ..utils.trees import MergeNode, create_tree_predefined, get_next_merge, update_tree
-from .fast_mnn import MergeStepInfo, MNNResult, _init_auto_search, _pick_best_merge
+from ..utils.trees import MergeNode, StepOutcome, walk_merge_tree
+from .fast_mnn import MNNResult
 
 __all__ = ["mnn_correct"]
 
@@ -133,6 +132,95 @@ def _rows(mat, idx: np.ndarray, device: torch.device) -> torch.Tensor:
     return mat[as_tensor(idx, mat.device, torch.long)]
 
 
+def _count_pairs_noorth(left: MergeNode, right: MergeNode, k, prop_k) -> int:
+    """MNN pairs between two nodes (auto-merge's count, reference
+    R/MNN_tree.R:160-167)."""
+    pairs = restricted_mnn(left.data, left.restrict, right.data, right.restrict, k=k,
+                           prop_k=prop_k, device=left.data.device)
+    return int(pairs.first.shape[0])
+
+
+def _merge_step(mdx: int, left: MergeNode, right: MergeNode, *, k, prop_k, sigma, svd_dim,
+                var_adj, same_set, subset_row, knn_method, device, nb) -> StepOutcome:
+    """One mnnCorrect merge (the merge loop of reference R/mnnCorrect.R):
+    MNN pairs in the "in" space, Gaussian-smoothed correction vectors for
+    the right side in the "in" and, when they differ, the "out" space
+    (``extras[0]``), then the biological subspace and the variance
+    adjustment."""
+    left_out = left.extras[0]
+    right_out = right.extras[0]
+
+    pairs = restricted_mnn(
+        left.data, left.restrict, right.data, right.restrict,
+        k=k, prop_k=prop_k, method=knn_method, device=device,
+    )
+    if pairs.first.shape[0] == 0:
+        raise ValueError(f"no MNN pairs found at merge step {mdx}")
+    s1, s2 = pairs.first, pairs.second
+
+    host_out = not same_set and isinstance(left_out, np.ndarray)
+    corr_in = _compute_correction_vectors(left.data, right.data, s1, s2, right.data, sigma)
+    if not same_set:
+        # distances come from the "in" coordinates so the kernel scale
+        # matches sigma (reference R/mnnCorrect.R:299-304)
+        if host_out:
+            corr_out = _host_average_correction(left_out, right_out, s1, s2, sigma,
+                                                right.data)
+        else:
+            corr_out = _compute_correction_vectors(left_out, right_out, s1, s2,
+                                                   right.data, sigma)
+
+    if svd_dim > 0:
+        u1 = np.unique(s1)
+        u2 = np.unique(s2)
+        span1, span2 = get_bio_span_pair(_rows(left.data, u1, device),
+                                         _rows(right.data, u2, device), svd_dim)
+        corr_in = subtract_bio(corr_in, span1, span2)
+        if not same_set:
+            ospan1, ospan2 = get_bio_span_pair(
+                _rows(left_out, u1, device), _rows(right_out, u2, device), svd_dim,
+                subset_row=subset_row,
+            )
+            corr_out = subtract_bio(corr_out, ospan1, ospan2, subset_row=subset_row)
+
+    if var_adj:
+        corr_in = adjust_shift_variance(
+            left.data, right.data, corr_in, sigma,
+            restrict1=left.restrict, restrict2=right.restrict,
+        )
+        if not same_set:
+            corr_out = adjust_shift_variance(
+                left_out, right_out, corr_out, sigma,
+                restrict1=left.restrict, restrict2=right.restrict,
+                subset_row=subset_row,
+            )
+
+    right_data = right.data + corr_in
+    if not same_set:
+        if host_out:
+            right_out = right_out + corr_out.cpu().numpy()
+        else:
+            right_out = right_out + corr_out
+
+    if same_set:
+        merged_out = None
+    elif host_out:
+        merged_out = np.concatenate([left_out, right_out], axis=0)
+    else:
+        merged_out = torch.cat([left_out, right_out], 0)
+    merged = MergeNode(
+        index=list(left.index) + list(right.index),
+        data=torch.cat([left.data, right_data], 0),
+        restrict=combine_restrict(
+            left.data.shape[0], left.restrict, right_data.shape[0], right.restrict
+        ),
+        origin=np.concatenate([left.origin, right.origin]),
+        extras=[merged_out],
+    )
+    return StepOutcome(node=merged, pairs=np.stack([s1, s2], axis=1),
+                       lost_var=np.full(nb, np.nan))
+
+
 def mnn_correct(
     batches_or_single,
     batch: Optional[Sequence] = None,
@@ -195,6 +283,7 @@ def mnn_correct(
         if batch_names is None:
             batch_names = [str(n) for n in divided.names]
     else:
+        divided = None
         if out_on_host:
             batches = [b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
                        for b in batches_or_single]
@@ -213,195 +302,22 @@ def mnn_correct(
     if restrict is None:
         restrict = [None] * nb
 
-    def leaf_extras(i):
-        return [None] if same_set else [out_b[i]]
-
-    if not auto_merge:
-        tree = create_tree_predefined(in_b, restrict, merge_order, batch_names,
-                                      leaf_extras=leaf_extras)
-        remainders = stats = None
-    else:
-        remainders = [MergeNode.leaf(i, in_b[i], restrict[i], extras=leaf_extras(i))
-                      for i in range(nb)]
-        stats = _init_auto_search(remainders, k, prop_k, orthogonalize=False)
-        tree = None
-
-    nmerges = nb - 1
-    left_sets: List[list] = [None] * nmerges
-    right_sets: List[list] = [None] * nmerges
-    raw_pairs: List[np.ndarray] = [None] * nmerges
-    final_node = None
-
-    for mdx in range(nmerges):
-        if not auto_merge:
-            left, right, path = get_next_merge(tree)
-        else:
-            li, ri = _pick_best_merge(stats)
-            left, right = remainders[li], remainders[ri]
-
-        left_sets[mdx] = list(left.index)
-        right_sets[mdx] = list(right.index)
-        left_out = left.extras[0]
-        right_out = right.extras[0]
-
-        pairs = restricted_mnn(
-            left.data, left.restrict, right.data, right.restrict,
-            k=k, prop_k=prop_k, method=knn_method, device=dev,
-        )
-        if pairs.first.shape[0] == 0:
-            raise ValueError(f"no MNN pairs found at merge step {mdx}")
-        s1, s2 = pairs.first, pairs.second
-        raw_pairs[mdx] = np.stack([s1, s2], axis=1)
-
-        host_out = not same_set and isinstance(left_out, np.ndarray)
-        corr_in = _compute_correction_vectors(left.data, right.data, s1, s2, right.data, sigma)
-        if not same_set:
-            # distances come from the "in" coordinates so the kernel scale
-            # matches sigma (reference R/mnnCorrect.R:299-304)
-            if host_out:
-                corr_out = _host_average_correction(left_out, right_out, s1, s2, sigma,
-                                                    right.data)
-            else:
-                corr_out = _compute_correction_vectors(left_out, right_out, s1, s2,
-                                                       right.data, sigma)
-
-        if svd_dim > 0:
-            u1 = np.unique(s1)
-            u2 = np.unique(s2)
-            span1, span2 = get_bio_span_pair(_rows(left.data, u1, dev),
-                                             _rows(right.data, u2, dev), svd_dim)
-            corr_in = subtract_bio(corr_in, span1, span2)
-            if not same_set:
-                ospan1, ospan2 = get_bio_span_pair(
-                    _rows(left_out, u1, dev), _rows(right_out, u2, dev), svd_dim,
-                    subset_row=subset_row,
-                )
-                corr_out = subtract_bio(corr_out, ospan1, ospan2, subset_row=subset_row)
-
-        if var_adj:
-            corr_in = adjust_shift_variance(
-                left.data, right.data, corr_in, sigma,
-                restrict1=left.restrict, restrict2=right.restrict,
-            )
-            if not same_set:
-                corr_out = adjust_shift_variance(
-                    left_out, right_out, corr_out, sigma,
-                    restrict1=left.restrict, restrict2=right.restrict,
-                    subset_row=subset_row,
-                )
-
-        right_data = right.data + corr_in
-        if not same_set:
-            if host_out:
-                right_out = right_out + corr_out.cpu().numpy()
-            else:
-                right_out = right_out + corr_out
-
-        if same_set:
-            merged_out = None
-        elif host_out:
-            merged_out = np.concatenate([left_out, right_out], axis=0)
-        else:
-            merged_out = torch.cat([left_out, right_out], 0)
-        merged = MergeNode(
-            index=list(left.index) + list(right.index),
-            data=torch.cat([left.data, right_data], 0),
-            restrict=combine_restrict(
-                left.data.shape[0], left.restrict, right_data.shape[0], right.restrict
-            ),
-            origin=np.concatenate([left.origin, right.origin]),
-            extras=[merged_out],
-        )
-
-        if not auto_merge:
-            tree = update_tree(tree, path, merged)
-            if not isinstance(tree, list):
-                final_node = tree
-        else:
-            keep = [x for t, x in enumerate(remainders) if t not in (li, ri)]
-            kept_idx = [t for t in range(len(remainders)) if t not in (li, ri)]
-            old = stats[np.ix_(kept_idx, kept_idx)]
-            new_counts = [_count_pairs_noorth(merged, other, k, prop_k) for other in keep]
-            n_new = len(keep) + 1
-            stats = np.zeros((n_new, n_new), dtype=np.int64)
-            stats[: len(keep), : len(keep)] = old
-            stats[len(keep), : len(keep)] = np.asarray(new_counts, dtype=np.int64)
-            remainders = keep + [merged]
-            if len(remainders) == 1:
-                final_node = merged
-
-    assert final_node is not None
-    full_data = final_node.data if same_set else final_node.extras[0]
-    full_order = final_node.index
-    full_origin = final_node.origin
-
-    pairings = []
-    origin_list = full_origin.tolist()
-    for mdx in range(nmerges):
-        p = raw_pairs[mdx].copy()
-        p[:, 0] += origin_list.index(left_sets[mdx][0])
-        p[:, 1] += origin_list.index(right_sets[mdx][0])
-        pairings.append(p)
-
-    if any(full_order[i] > full_order[i + 1] for i in range(len(full_order) - 1)):
-        ncells = np.bincount(full_origin, minlength=nb)
-        ordering = restore_original_order(full_order, ncells)
-        if isinstance(full_data, np.ndarray):
-            full_data = full_data[ordering]
-        else:
-            full_data = full_data[as_tensor(ordering, dev, torch.long)]
-        full_origin = full_origin[ordering]
-        pairings = reindex_pairings(pairings, ordering)
-
-    merge_info = [
-        MergeStepInfo(
-            left=left_sets[m],
-            right=right_sets[m],
-            pairs=pairings[m],
-            batch_size=np.nan,
-            skipped=False,
-            lost_var=np.full(nb, np.nan),
-        )
-        for m in range(nmerges)
-    ]
-
-    batch_labels = full_origin
-    if batch_names is not None:
-        names = np.asarray(batch_names)
-        if len(set(batch_names)) != len(batch_names):
-            raise ValueError("names of batches should be unique")
-        batch_labels = names[full_origin]
-        for info in merge_info:
-            info.left = [batch_names[i] for i in info.left]
-            info.right = [batch_names[i] for i in info.right]
-
+    step = functools.partial(_merge_step, k=k, prop_k=prop_k, sigma=sigma, svd_dim=svd_dim,
+                             var_adj=var_adj, same_set=same_set, subset_row=subset_row,
+                             knn_method=knn_method, device=dev, nb=nb)
+    corrected, labels, merge_info = walk_merge_tree(
+        [MergeNode.leaf(i, in_b[i], restrict[i], extras=[None] if same_set else [out_b[i]])
+         for i in range(nb)],
+        step, merge_order=merge_order, names=batch_names, auto_merge=auto_merge,
+        count=functools.partial(_count_pairs_noorth, k=k, prop_k=prop_k),
+        output=lambda node: node.data if same_set else node.extras[0],
+    )
     out = MNNResult(
-        corrected=full_data,
-        batch=batch_labels,
+        corrected=corrected,
+        batch=labels,
         merge_info=merge_info,
         batch_names=list(batch_names) if batch_names is not None else None,
     )
-    if single:
-        reo = divided.reorder
-        out.corrected = out.corrected[as_tensor(reo, dev, torch.long)]
-        out.batch = out.batch[reo]
-        new_pairs = reindex_pairings([i.pairs for i in out.merge_info], reo)
-        for info, p in zip(out.merge_info, new_pairs):
-            info.pairs = p
-    if cell_names is not None:
-        if single:
-            out.cell_names = np.asarray(cell_names, dtype=object)
-        else:
-            out.cell_names = generate_cell_names(cell_names, [b.shape[0] for b in batches])
-    if gene_names is not None:
-        gn = np.asarray(gene_names, dtype=object)
-        if subset_row is not None and not correct_all:
-            gn = gn[np.asarray(subset_row)]
-        out.gene_names = gn
-    return out
-
-
-def _count_pairs_noorth(left: MergeNode, right: MergeNode, k, prop_k) -> int:
-    pairs = restricted_mnn(left.data, left.restrict, right.data, right.restrict, k=k,
-                           prop_k=prop_k, device=left.data.device)
-    return int(pairs.first.shape[0])
+    return finish_output(out, divided, [b.shape[0] for b in batches], cell_names=cell_names,
+                         gene_names=gene_names, subset_row=subset_row,
+                         correct_all=correct_all)

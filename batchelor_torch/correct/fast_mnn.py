@@ -4,7 +4,8 @@ Counterpart of ``batchelor_tpu/correct/fast_mnn.py`` (reference
 R/fastMNN.R:283-658, R/reducedMNN.R:61-95). ``fast_mnn`` starts from gene
 space: cosine-norm -> multi_batch_pca -> the merge loop; ``reduced_mnn``
 starts from precomputed low-dimensional coordinates. The merge-tree walk is
-host-side Python; every numeric step (kNN/MNN, averaging, orthogonalization,
+host-side Python (``utils/trees.py::walk_merge_tree``); this module supplies
+its merge step, whose numeric work (kNN/MNN, averaging, orthogonalization,
 tricube apply) runs on the tensors' device. Each merge step finds MNN pairs
 between the left and right sets, removes variation along the average batch
 vector ("kissing" protection, R/fastMNN.R:84-88), then applies
@@ -12,6 +13,7 @@ tricube-smoothed per-cell corrections.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -37,30 +39,12 @@ from ..utils.batching import (
     check_restrictions,
     combine_restrict,
     divide_into_batches,
-    generate_cell_names,
-    reindex_pairings,
-    restore_original_order,
+    finish_output,
 )
 from ..utils.telemetry import get_recorder, trace_span
-from ..utils.trees import MergeNode, create_tree_predefined, get_next_merge, update_tree
+from ..utils.trees import MergeNode, MergeStepInfo, StepOutcome, walk_merge_tree
 
 __all__ = ["fast_mnn", "reduced_mnn", "MNNResult", "MergeStepInfo"]
-
-
-@dataclass
-class MergeStepInfo:
-    """Diagnostics for one merge step (reference merge.info, R/fastMNN.R:549-561).
-
-    ``pairs`` holds 0-based cell indices into the *output* ordering;
-    ``lost_var`` is per input batch (nan for batches not yet merged).
-    """
-
-    left: list
-    right: list
-    pairs: np.ndarray
-    batch_size: float
-    skipped: bool
-    lost_var: np.ndarray
 
 
 @dataclass
@@ -101,37 +85,101 @@ class MNNResult:
 
 
 # --------------------------------------------------------------------------
-# auto.merge machinery (reference R/MNN_tree.R:154-226)
+# the merge step (reference .fast_mnn_core, R/fastMNN.R:436-562); the walk
+# over the merge tree is utils/trees.py's
 
 
-def _count_pairs(left: MergeNode, right: MergeNode, k, prop_k, orthogonalize) -> int:
-    ld, rd = left.data, right.data
-    if orthogonalize:
-        rd = orthogonalize_other(rd, right.restrict, left.extras)
-        ld = orthogonalize_other(ld, left.restrict, right.extras)
+def _count_pairs(left: MergeNode, right: MergeNode, k, prop_k) -> int:
+    """MNN pairs between two nodes, each side orthogonalized against the
+    other's batch vectors first (auto-merge's count, reference
+    R/MNN_tree.R:160-167)."""
+    rd = orthogonalize_other(right.data, right.restrict, left.extras)
+    ld = orthogonalize_other(left.data, left.restrict, right.extras)
     pairs = restricted_mnn(ld, left.restrict, rd, right.restrict, k=k, prop_k=prop_k,
                            device=ld.device)
     return int(pairs.first.shape[0])
 
 
-def _init_auto_search(nodes: List[MergeNode], k, prop_k, orthogonalize):
-    n = len(nodes)
-    stats = np.zeros((n, n), dtype=np.int64)
-    for i in range(n):
-        for j in range(i):
-            stats[i, j] = _count_pairs(nodes[i], nodes[j], k, prop_k, orthogonalize)
-    return stats
+def _merge_step(mdx: int, left: MergeNode, right: MergeNode, *, k, prop_k, ndist,
+                min_batch_skip, knn_method, nbatches) -> StepOutcome:
+    """One fastMNN merge: MNN pairs between the two sides, the batch vector
+    removed from both (R/fastMNN.R:84-88), then the right side corrected by
+    tricube-smoothed per-cell vectors."""
+    left_old = per_batch_var(left.data, left.index, left.origin)
+    right_old = per_batch_var(right.data, right.index, right.origin)
 
+    # Replay earlier batch vectors on the opposite side before MNN search
+    # (reference R/fastMNN.R:472-474).
+    with trace_span("fastmnn/orthogonalize", step=mdx):
+        right_data = orthogonalize_other(right.data, right.restrict, left.extras)
+        left_data = orthogonalize_other(left.data, left.restrict, right.extras)
 
-def _pick_best_merge(stats: np.ndarray):
-    """First maximal entry in column-major order (R which(..., arr.ind) order)."""
-    mx = stats.max()
-    cols, rows = np.nonzero(stats.T == mx)
-    return int(rows[0]), int(cols[0])
+    with trace_span("fastmnn/mnn_search", step=mdx):
+        pairs = restricted_mnn(
+            left_data, left.restrict, right_data, right.restrict,
+            k=k, prop_k=prop_k, method=knn_method, device=left_data.device,
+        )
+    if pairs.first.shape[0] == 0:
+        raise ValueError(
+            f"no MNN pairs found at merge step {mdx}; increase k or check inputs"
+        )
 
+    averaged, _second = average_correction(left_data, pairs.first,
+                                           right_data, pairs.second)
+    overall = averaged.mean(0)
 
-# --------------------------------------------------------------------------
-# core merge loop (reference .fast_mnn_core, R/fastMNN.R:436-562)
+    # batch.size is always reported (reference R/fastMNN.R:484-492);
+    # min.batch.skip only gates the skip decision, and the scalar only
+    # crosses to the host when that gate can fire.
+    batch_size = batch_magnitude(averaged)
+    skipped = False
+    if min_batch_skip is not None and min_batch_skip > 0.0:
+        batch_size = float(batch_size)
+        skipped = batch_size < min_batch_skip
+
+    if not skipped:
+        with trace_span("fastmnn/correct", step=mdx):
+            left_data = center_along_batch_vector(left_data, overall, left.restrict)
+            right_data = center_along_batch_vector(right_data, overall, right.restrict)
+            left_new = per_batch_var(left_data, left.index, left.origin)
+            right_new = per_batch_var(right_data, right.index, right.origin)
+            to_add = [overall]
+            re_avg, second = average_correction(
+                left_data, pairs.first, right_data, pairs.second
+            )
+            right_data = tricube_weighted_correction(
+                right_data,
+                re_avg,
+                second,
+                k=choose_k(k, prop_k, right_data.shape[0]),
+                ndist=ndist,
+            )
+    else:
+        to_add = []
+        left_new = per_batch_var(left_data, left.index, left.origin)
+        right_new = per_batch_var(right_data, right.index, right.origin)
+
+    var_kept = np.ones(nbatches, dtype=np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        var_kept[left.index] = left_new / left_old
+        var_kept[right.index] = right_new / right_old
+    rec = get_recorder()
+    if rec is not None:
+        rec.add("merge_steps")
+        rec.add("mnn_pairs", float(pairs.first.shape[0]))
+        rec.add("cells_merged", float(left.data.shape[0] + right.data.shape[0]))
+
+    merged = MergeNode(
+        index=list(left.index) + list(right.index),
+        data=torch.cat([left_data, right_data], 0),
+        restrict=combine_restrict(
+            left_data.shape[0], left.restrict, right_data.shape[0], right.restrict
+        ),
+        origin=np.concatenate([left.origin, right.origin]),
+        extras=list(left.extras) + list(right.extras) + to_add,
+    )
+    return StepOutcome(node=merged, pairs=np.stack([pairs.first, pairs.second], axis=1),
+                       lost_var=1.0 - var_kept, batch_size=batch_size, skipped=skipped)
 
 
 def _fast_mnn_core(
@@ -149,237 +197,20 @@ def _fast_mnn_core(
     knn_method: str = "exact",
 ):
     checkpointer = None if checkpoint_dir is None else MergeCheckpointer(checkpoint_dir)
-    nbatches = len(batches)
-    nmerges = nbatches - 1
-    left_sets: List[list] = [None] * nmerges
-    right_sets: List[list] = [None] * nmerges
-    raw_pairs: List[np.ndarray] = [None] * nmerges
-    var_kept = np.ones((nmerges, nbatches), dtype=np.float64)
-    # per-step batch.size: device scalars until the end of the loop (the
-    # host only needs the value when min_batch_skip > 0 gates the step)
-    batch_size: list = [np.nan] * nmerges
-    skipped = np.zeros(nmerges, dtype=bool)
-
     if restrict is None:
-        restrict = [None] * nbatches
-
-    if not auto_merge:
-        tree = create_tree_predefined(batches, restrict, merge_order, batch_names)
-        remainders = None
-        stats = None
-    else:
-        remainders = [MergeNode.leaf(i, batches[i], restrict[i]) for i in range(nbatches)]
-        stats = _init_auto_search(remainders, k, prop_k, orthogonalize=True)
-        tree = None
-
-    final_node: Optional[MergeNode] = None
-
-    for mdx in range(nmerges):
-        with trace_span("fastmnn/step", step=mdx):
-            # Resume path: replay a completed step from the checkpoint store
-            # without recomputation.
-            if checkpointer is not None and mdx < checkpointer.completed_steps:
-                tree_path, chosen, merged, diag = checkpointer.load_step(
-                    mdx, batches[0].device)
-                left_sets[mdx] = diag["left_set"]
-                right_sets[mdx] = diag["right_set"]
-                raw_pairs[mdx] = diag["pairs"]
-                batch_size[mdx] = diag["batch_size"]
-                skipped[mdx] = diag["skipped"]
-                var_kept[mdx] = 1.0 - diag["lost_var"]
-                if not auto_merge:
-                    # the walk must address the same subtree and the same batch
-                    # sets as when the checkpoint was written
-                    cur_left, cur_right, expect_path = get_next_merge(tree)
-                    if (
-                        expect_path != tree_path
-                        or list(cur_left.index) != list(diag["left_set"])
-                        or list(cur_right.index) != list(diag["right_set"])
-                    ):
-                        raise ValueError("checkpoint does not match this merge tree")
-                    tree = update_tree(tree, tree_path, merged)
-                    if not isinstance(tree, list):
-                        final_node = tree
-                else:
-                    li, ri = chosen
-                    keep = [x for t, x in enumerate(remainders) if t not in (li, ri)]
-                    remainders = keep + [merged]
-                    stats = diag["stats"]
-                    if len(remainders) == 1:
-                        final_node = merged
-                continue
-
-            if not auto_merge:
-                left, right, path = get_next_merge(tree)
-            else:
-                li, ri = _pick_best_merge(stats)
-                left, right = remainders[li], remainders[ri]
-
-            left_old = per_batch_var(left.data, left.index, left.origin)
-            right_old = per_batch_var(right.data, right.index, right.origin)
-            left_sets[mdx] = list(left.index)
-            right_sets[mdx] = list(right.index)
-
-            # Replay earlier batch vectors on the opposite side before MNN search
-            # (reference R/fastMNN.R:472-474).
-            with trace_span("fastmnn/orthogonalize", step=mdx):
-                right_data = orthogonalize_other(right.data, right.restrict, left.extras)
-                left_data = orthogonalize_other(left.data, left.restrict, right.extras)
-
-            with trace_span("fastmnn/mnn_search", step=mdx):
-                pairs = restricted_mnn(
-                    left_data, left.restrict, right_data, right.restrict,
-                    k=k, prop_k=prop_k, method=knn_method, device=left_data.device,
-                )
-            if pairs.first.shape[0] == 0:
-                raise ValueError(
-                    f"no MNN pairs found at merge step {mdx}; increase k or check inputs"
-                )
-
-            averaged, _second = average_correction(left_data, pairs.first,
-                                                   right_data, pairs.second)
-            overall = averaged.mean(0)
-
-            # batch.size is always reported (reference R/fastMNN.R:484-492);
-            # min.batch.skip only gates the skip decision, and the scalar only
-            # crosses to the host when that gate can fire.
-            mag_dev = batch_magnitude(averaged)
-            do_correct = True
-            if min_batch_skip is not None and min_batch_skip > 0.0:
-                mag = float(mag_dev)
-                batch_size[mdx] = mag
-                if mag < min_batch_skip:
-                    do_correct = False
-                    skipped[mdx] = True
-            else:
-                batch_size[mdx] = mag_dev
-
-            if do_correct:
-                with trace_span("fastmnn/correct", step=mdx):
-                    left_data = center_along_batch_vector(left_data, overall, left.restrict)
-                    right_data = center_along_batch_vector(right_data, overall, right.restrict)
-                    left_new = per_batch_var(left_data, left.index, left.origin)
-                    right_new = per_batch_var(right_data, right.index, right.origin)
-                    to_add = [overall]
-                    re_avg, second = average_correction(
-                        left_data, pairs.first, right_data, pairs.second
-                    )
-                    right_data = tricube_weighted_correction(
-                        right_data,
-                        re_avg,
-                        second,
-                        k=choose_k(k, prop_k, right_data.shape[0]),
-                        ndist=ndist,
-                    )
-            else:
-                to_add = []
-                left_new = per_batch_var(left_data, left.index, left.origin)
-                right_new = per_batch_var(right_data, right.index, right.origin)
-
-            with np.errstate(invalid="ignore", divide="ignore"):
-                var_kept[mdx, left.index] = left_new / left_old
-                var_kept[mdx, right.index] = right_new / right_old
-            raw_pairs[mdx] = np.stack([pairs.first, pairs.second], axis=1)
-            rec = get_recorder()
-            if rec is not None:
-                rec.add("merge_steps")
-                rec.add("mnn_pairs", float(pairs.first.shape[0]))
-                rec.add("cells_merged", float(left.data.shape[0] + right.data.shape[0]))
-
-            merged = MergeNode(
-                index=list(left.index) + list(right.index),
-                data=torch.cat([left_data, right_data], 0),
-                restrict=combine_restrict(
-                    left_data.shape[0], left.restrict, right_data.shape[0], right.restrict
-                ),
-                origin=np.concatenate([left.origin, right.origin]),
-                extras=list(left.extras) + list(right.extras) + to_add,
-            )
-
-            if not auto_merge:
-                tree = update_tree(tree, path, merged)
-                if not isinstance(tree, list):
-                    final_node = tree
-            else:
-                keep = [x for t, x in enumerate(remainders) if t not in (li, ri)]
-                kept_idx = [t for t in range(len(remainders)) if t not in (li, ri)]
-                old = stats[np.ix_(kept_idx, kept_idx)]
-                new_counts = [
-                    _count_pairs(merged, other, k, prop_k, orthogonalize=True) for other in keep
-                ]
-                n_new = len(keep) + 1
-                stats = np.zeros((n_new, n_new), dtype=np.int64)
-                stats[: len(keep), : len(keep)] = old
-                stats[len(keep), : len(keep)] = np.asarray(new_counts, dtype=np.int64)
-                remainders = keep + [merged]
-                if len(remainders) == 1:
-                    final_node = merged
-
-            if checkpointer is not None:
-                checkpointer.save_step(
-                    mdx,
-                    path if not auto_merge else None,
-                    None if not auto_merge else [li, ri],
-                    merged,
-                    {
-                        "pairs": raw_pairs[mdx],
-                        "lost_var": 1.0 - var_kept[mdx],
-                        "left_set": left_sets[mdx],
-                        "right_set": right_sets[mdx],
-                        "batch_size": float(batch_size[mdx]),
-                        "skipped": bool(skipped[mdx]),
-                        "stats": stats if auto_merge else None,
-                    },
-                )
-
-    assert final_node is not None
-    full_data = final_node.data
-    full_order = final_node.index
-    full_origin = final_node.origin
-
-    # Re-index pairs into final concatenated positions (reference
-    # R/fastMNN.R:532-538): offset by the first cell of each side's block.
-    pairings = []
-    origin_list = full_origin.tolist()
-    for mdx in range(nmerges):
-        p = raw_pairs[mdx].copy()
-        p[:, 0] += origin_list.index(left_sets[mdx][0])
-        p[:, 1] += origin_list.index(right_sets[mdx][0])
-        pairings.append(p)
-
-    # Restore input batch order (reference R/fastMNN.R:540-547).
-    if any(full_order[i] > full_order[i + 1] for i in range(len(full_order) - 1)):
-        ncells = np.bincount(full_origin, minlength=nbatches)
-        ordering = restore_original_order(full_order, ncells)
-        full_data = full_data[as_tensor(ordering, full_data.device, torch.long)]
-        full_origin = full_origin[ordering]
-        pairings = reindex_pairings(pairings, ordering)
-
-    merge_info = [
-        MergeStepInfo(
-            left=left_sets[m],
-            right=right_sets[m],
-            pairs=pairings[m],
-            batch_size=float(batch_size[m]),
-            skipped=bool(skipped[m]),
-            lost_var=1.0 - var_kept[m],
-        )
-        for m in range(nmerges)
-    ]
-
-    batch_labels = full_origin
-    if batch_names is not None:
-        names = np.asarray(batch_names)
-        if len(set(batch_names)) != len(batch_names):
-            raise ValueError("names of batches should be unique")
-        batch_labels = names[full_origin]
-        for info in merge_info:
-            info.left = [batch_names[i] for i in info.left]
-            info.right = [batch_names[i] for i in info.right]
-
+        restrict = [None] * len(batches)
+    step = functools.partial(_merge_step, k=k, prop_k=prop_k, ndist=ndist,
+                             min_batch_skip=min_batch_skip, knn_method=knn_method,
+                             nbatches=len(batches))
+    corrected, labels, merge_info = walk_merge_tree(
+        [MergeNode.leaf(i, b, r) for i, (b, r) in enumerate(zip(batches, restrict))],
+        step, merge_order=merge_order, names=batch_names, auto_merge=auto_merge,
+        count=functools.partial(_count_pairs, k=k, prop_k=prop_k),
+        checkpointer=checkpointer, device=batches[0].device, span="fastmnn/step",
+    )
     return MNNResult(
-        corrected=full_data,
-        batch=batch_labels,
+        corrected=corrected,
+        batch=labels,
         merge_info=merge_info,
         batch_names=list(batch_names) if batch_names is not None else None,
     )
@@ -427,33 +258,18 @@ def reduced_mnn(
             batches = [as_tensor(b, dev) for b in batches_or_single]
             check_batch_consistency(batches, cells_in_rows=True)
             restrict = check_restrictions(batches, restrict, cells_in_rows=True)
-            out = _fast_mnn_core(batches, restrict, batch_names=batch_names, **opts)
-            if cell_names is not None:
-                out.cell_names = generate_cell_names(
-                    cell_names, [b.shape[0] for b in batches]
-                )
-            return out
-
-        x = as_tensor(batches_or_single, dev)
-        divided = divide_into_batches(
-            np.arange(x.shape[0]), batch, cells_in_rows=True, restrict=restrict
-        )
-        out = _fast_mnn_core(
-            [x[as_tensor(idx, dev, torch.long)] for idx in divided.batches],
-            divided.restricted,
-            batch_names=[str(n) for n in divided.names],
-            **opts,
-        )
-        reo = divided.reorder
-        out.corrected = out.corrected[as_tensor(reo, dev, torch.long)]
-        out.batch = out.batch[reo]
-        new_pairs = reindex_pairings([i.pairs for i in out.merge_info], reo)
-        for info, p in zip(out.merge_info, new_pairs):
-            info.pairs = p
-        if cell_names is not None:
-            # single input: output is input cell order, names pass through
-            out.cell_names = np.asarray(cell_names, dtype=object)
-        return out
+            divided = None
+        else:
+            x = as_tensor(batches_or_single, dev)
+            divided = divide_into_batches(
+                np.arange(x.shape[0]), batch, cells_in_rows=True, restrict=restrict
+            )
+            batches = [x[as_tensor(idx, dev, torch.long)] for idx in divided.batches]
+            restrict = divided.restricted
+            batch_names = [str(n) for n in divided.names]
+        out = _fast_mnn_core(batches, restrict, batch_names=batch_names, **opts)
+        return finish_output(out, divided, [b.shape[0] for b in batches],
+                             cell_names=cell_names)
 
 
 def fast_mnn(
@@ -511,6 +327,7 @@ def fast_mnn(
             if batch_names is None:
                 batch_names = [str(n) for n in divided.names]
         else:
+            divided = None
             batches = [as_tensor(b, dev) for b in batches_or_single]
             if len(batches) < 2:
                 raise ValueError("at least two batches must be specified")
@@ -550,28 +367,10 @@ def fast_mnn(
             checkpoint_dir=checkpoint_dir,
             knn_method=knn_method,
         )
-        if single:
-            reo = divided.reorder
-            out.corrected = out.corrected[as_tensor(reo, dev, torch.long)]
-            out.batch = out.batch[reo]
-            new_pairs = reindex_pairings([i.pairs for i in out.merge_info], reo)
-            for info, p in zip(out.merge_info, new_pairs):
-                info.pairs = p
-
         out.rotation = pca.rotation
         out.centers = pca.centers
         out.var_explained = pca.var_explained
         out.var_total = pca.var_total
-        if cell_names is not None:
-            if single:
-                out.cell_names = np.asarray(cell_names, dtype=object)
-            else:
-                out.cell_names = generate_cell_names(
-                    cell_names, [b.shape[0] for b in batches]
-                )
-        if gene_names is not None:
-            gn = np.asarray(gene_names, dtype=object)
-            if subset_row is not None and not correct_all:
-                gn = gn[np.asarray(subset_row)]
-            out.gene_names = gn
-        return out
+        return finish_output(out, divided, [b.shape[0] for b in batches],
+                             cell_names=cell_names, gene_names=gene_names,
+                             subset_row=subset_row, correct_all=correct_all)

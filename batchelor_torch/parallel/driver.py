@@ -1,13 +1,13 @@
 """Distributed fastMNN: whole merge trees with cells split over the ranks.
 
 Counterpart of ``batchelor_tpu/parallel/driver.py``. The merge orchestration
-is host Python with the tree semantics of ``correct/fast_mnn.py``; every
-step runs on each rank's row shards with explicit collectives: the gather
-mode all-gathers the opposing set for the kNN searches
-(``ops/merge_math.merge_step_body``, the same body the fused step runs),
-the ring mode rotates blocks so that no array of global length exists on a
-rank (``ring.py``). Restriction masks and the replayed batch vectors are
-device tensors.
+is the host engines' walk (``utils/trees.py::walk_merge_tree``); this module
+supplies its step, which runs on each rank's row shards with explicit
+collectives: the gather mode all-gathers the opposing set for the kNN
+searches (``ops/merge_math.merge_step_body``, the same body the fused step
+runs), the ring mode rotates blocks so that no array of global length
+exists on a rank (``ring.py``). Restriction masks and the replayed batch
+vectors are device tensors.
 
 One process per rank (``torch.distributed``): every rank calls
 :func:`distributed_fast_mnn` with the same full batches, keeps its own row
@@ -25,13 +25,12 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
-from ..correct.fast_mnn import MergeStepInfo, MNNResult, _pick_best_merge
+from ..correct.fast_mnn import MNNResult
 from ..device import as_tensor
 from ..io.checkpoint import MergeCheckpointer
 from ..ops.correction import tricube_weights
@@ -47,9 +46,8 @@ from ..ops.merge_math import (
     replay_extras,
 )
 from ..ops.mutual_nn import choose_k
-from ..utils.batching import reindex_pairings, restore_original_order
 from ..utils.telemetry import trace_span
-from ..utils.trees import MergeNode, binarize_tree
+from ..utils.trees import MergeNode, StepOutcome, walk_merge_tree
 from .mesh import CellsMesh, barrier
 from .ring import (
     ring_membership,
@@ -197,56 +195,6 @@ def _extras_table(extras) -> Optional[torch.Tensor]:
     return torch.stack(extras) if extras else None
 
 
-def _int_tree(nb: int, merge_order):
-    """Binary int-leaf merge tree (the semantics of create_tree_predefined
-    without node filling)."""
-    if merge_order is None:
-        merge_order = list(range(nb))
-    if not isinstance(merge_order, list) or not any(
-        isinstance(x, (list, tuple)) for x in merge_order
-    ):
-        mo = list(merge_order)
-        tree = [mo[0], mo[1]] if len(mo) > 1 else mo[0]
-        for nxt in mo[2:]:
-            tree = [tree, nxt]
-    else:
-        tree = list(merge_order)
-    tree = binarize_tree(tree)
-
-    def leaves(t):
-        return [t] if not isinstance(t, list) else leaves(t[0]) + leaves(t[1])
-
-    if sorted(leaves(tree)) != list(range(nb)):
-        raise ValueError("invalid leaf nodes specified in 'merge_order'")
-    return tree
-
-
-def _tree_next(tree):
-    """The deepest merge that is ready, the right branch first:
-    (left, right, path to it)."""
-    path = []
-    cur = tree
-    while True:
-        l_int = isinstance(cur[0], list)
-        r_int = isinstance(cur[1], list)
-        if not l_int and not r_int:
-            return cur[0], cur[1], path
-        if r_int:
-            path.append(1)
-            cur = cur[1]
-        else:
-            path.append(0)
-            cur = cur[0]
-
-
-def _tree_update(tree, path, node):
-    if not path:
-        return node
-    tree = list(tree)
-    tree[path[0]] = _tree_update(tree[path[0]], path[1:], node)
-    return tree
-
-
 def _collect_pairs(mesh: CellsMesh, mutual, l2r, left_n: int, right_n: int) -> np.ndarray:
     """The MNN pair list of the step, in the order of ``nonzero`` over the
     whole gathered mask (left cell, then distance rank; reference
@@ -318,6 +266,31 @@ def _record_to_dev(mesh: CellsMesh, rec: MergeNode) -> _DevBatch:
                       [as_tensor(e, mesh.device) for e in rec.extras])
 
 
+class _RankStore:
+    """The checkpoint store as every rank walks it: nodes stored whole as
+    the store's ``MergeNode`` and loaded back split over the ranks; rank 0
+    writes, and every rank leaves a save with the store written (the other
+    ranks' count of completed steps stays below the step, so they make the
+    same resume decisions as rank 0)."""
+
+    def __init__(self, mesh: CellsMesh, directory: str):
+        self.mesh = mesh
+        self.store = MergeCheckpointer(directory)
+
+    @property
+    def completed_steps(self) -> int:
+        return self.store.completed_steps
+
+    def load_step(self, mdx: int, device):
+        tree_path, chosen, rec, diag = self.store.load_step(mdx, device)
+        return tree_path, chosen, _record_to_dev(self.mesh, rec), diag
+
+    def save_step(self, mdx: int, tree_path, chosen, record: MergeNode, diag: dict) -> None:
+        if self.mesh.rank == 0:
+            self.store.save_step(mdx, tree_path, chosen, record, diag)
+        barrier(self.mesh)
+
+
 def distributed_fast_mnn(
     batches: Sequence,
     mesh: CellsMesh,
@@ -371,70 +344,9 @@ def distributed_fast_mnn(
         nodes.append(_make_dev_batch(mesh, b, i, restrict[i]))
         del b
 
-    checkpointer = None if checkpoint_dir is None else MergeCheckpointer(checkpoint_dir)
+    store = None if checkpoint_dir is None else _RankStore(mesh, checkpoint_dir)
 
-    if not auto_merge:
-        def fill(t):
-            return nodes[t] if not isinstance(t, list) else [fill(t[0]), fill(t[1])]
-
-        tree = fill(_int_tree(nb, merge_order))
-        remainders = None
-    else:
-        tree = None
-        remainders = list(nodes)
-    stats = None  # auto_merge's pair counts, filled lazily (none on a full resume)
-
-    nmerges = nb - 1
-    infos: List[MergeStepInfo] = []
-    step_meta = []
-    var_kept = np.ones((nmerges, nb), dtype=np.float64)
-    final = None
-
-    for mdx in range(nmerges):
-        # resume: replay a completed step from the checkpoint store
-        if checkpointer is not None and mdx < checkpointer.completed_steps:
-            tree_path, chosen, rec, diag = checkpointer.load_step(mdx, mesh.device)
-            merged = _record_to_dev(mesh, rec)
-            infos.append(MergeStepInfo(
-                left=diag["left_set"], right=diag["right_set"], pairs=diag["pairs"],
-                batch_size=diag["batch_size"], skipped=diag["skipped"],
-                lost_var=diag["lost_var"]))
-            var_kept[mdx] = 1.0 - diag["lost_var"]
-            step_meta.append((diag["left_set"], diag["right_set"]))
-            if not auto_merge:
-                cur_left, cur_right, expect_path = _tree_next(tree)
-                if (expect_path != tree_path
-                        or list(cur_left.index) != list(diag["left_set"])
-                        or list(cur_right.index) != list(diag["right_set"])):
-                    raise ValueError("checkpoint does not match this merge tree")
-                tree = _tree_update(tree, tree_path, merged)
-                if not isinstance(tree, list):
-                    final = tree
-            else:
-                li, ri = chosen
-                remainders = [x for t, x in enumerate(remainders)
-                              if t not in (li, ri)] + [merged]
-                stats = diag["stats"]
-                if len(remainders) == 1:
-                    final = merged
-            continue
-
-        if not auto_merge:
-            left, right, path = _tree_next(tree)
-            li = ri = None
-        else:
-            if stats is None:
-                # O(B^2) pairwise MNN counts (reference R/MNN_tree.R:160-167)
-                m = len(remainders)
-                stats = np.zeros((m, m), dtype=np.int64)
-                for i in range(m):
-                    for j in range(i):
-                        stats[i, j] = _count_pairs_dev(mesh, remainders[i], remainders[j], k,
-                                                       prop_k, knn_method, memory, max_bytes)
-            li, ri = _pick_best_merge(stats)
-            left, right = remainders[li], remainders[ri]
-            path = None
-
+    def step(mdx: int, left: _DevBatch, right: _DevBatch) -> StepOutcome:
         k1 = choose_k(k, prop_k, left.n)
         k2 = choose_k(k, prop_k, right.n)
         tric_k = min(choose_k(k, prop_k, right.n), right.n)
@@ -469,83 +381,22 @@ def distributed_fast_mnn(
         vn = var_new.double().cpu().numpy()
         with np.errstate(invalid="ignore", divide="ignore"):
             ratio = vn / vo
+        var_kept = np.ones(nb, dtype=np.float64)
         for b in list(left.index) + list(right.index):
-            var_kept[mdx, b] = ratio[b]
-
-        infos.append(MergeStepInfo(
-            left=list(left.index), right=list(right.index), pairs=pairs,
-            batch_size=mag_f, skipped=skipped, lost_var=1.0 - var_kept[mdx]))
-        step_meta.append((list(left.index), list(right.index)))
+            var_kept[b] = ratio[b]
 
         merged, merged_data = _concat_dev(mesh, left, right, lc, rc, overall, skipped)
         del lc, rc
-        if not auto_merge:
-            tree = _tree_update(tree, path, merged)
-            if not isinstance(tree, list):
-                final = tree
-        else:
-            keep = [x for t, x in enumerate(remainders) if t not in (li, ri)]
-            kept_idx = [t for t in range(len(remainders)) if t not in (li, ri)]
-            old = stats[np.ix_(kept_idx, kept_idx)]
-            new_counts = [_count_pairs_dev(mesh, merged, other, k, prop_k, knn_method,
-                                           memory, max_bytes) for other in keep]
-            n_new = len(keep) + 1
-            stats = np.zeros((n_new, n_new), dtype=np.int64)
-            stats[: len(keep), : len(keep)] = old
-            stats[len(keep), : len(keep)] = np.asarray(new_counts, dtype=np.int64)
-            remainders = keep + [merged]
-            if len(remainders) == 1:
-                final = merged
+        return StepOutcome(
+            node=merged, pairs=pairs, lost_var=1.0 - var_kept, batch_size=mag_f,
+            skipped=skipped,
+            record=None if store is None else _node_record(merged, merged_data))
 
-        if checkpointer is not None:
-            if mesh.rank == 0:
-                checkpointer.save_step(
-                    mdx,
-                    path if not auto_merge else None,
-                    None if not auto_merge else [li, ri],
-                    _node_record(merged, merged_data),
-                    {
-                        "pairs": pairs,
-                        "lost_var": 1.0 - var_kept[mdx],
-                        "left_set": list(left.index),
-                        "right_set": list(right.index),
-                        "batch_size": mag_f,
-                        "skipped": bool(skipped),
-                        "stats": stats if auto_merge else None,
-                    },
-                )
-            # every rank leaves the step with the store written (the other
-            # ranks' count of completed steps stays below this step, so they
-            # make the same resume decisions as rank 0)
-            barrier(mesh)
-        del merged_data
-
-    assert final is not None
-    full_data = gmaybe(final.data, mesh.group)[:final.n]
-    origin = final.origin
-    full_order = final.index
-
-    # pair offsets: each node's cells are contiguous in the final data,
-    # starting at its first batch's block (the host engine's convention)
-    offset_map = {}
-    pos = 0
-    for b in full_order:
-        offset_map[b] = pos
-        pos += int(np.sum(origin == b))
-    for info, (lset, rset) in zip(infos, step_meta):
-        if info.pairs.size:
-            p = info.pairs.copy()
-            p[:, 0] += offset_map[lset[0]]
-            p[:, 1] += offset_map[rset[0]]
-            info.pairs = p
-
-    if any(full_order[i] > full_order[i + 1] for i in range(len(full_order) - 1)):
-        ncells = np.bincount(origin, minlength=nb)
-        ordering = restore_original_order(full_order, ncells)
-        full_data = full_data[as_tensor(ordering, full_data.device, torch.long)]
-        origin = origin[ordering]
-        new_pairs = reindex_pairings([i.pairs for i in infos], ordering)
-        for info, p in zip(infos, new_pairs):
-            info.pairs = p
-
-    return MNNResult(corrected=full_data, batch=origin, merge_info=infos)
+    corrected, origin, infos = walk_merge_tree(
+        nodes, step, merge_order=merge_order, auto_merge=auto_merge,
+        count=lambda a, b: _count_pairs_dev(mesh, a, b, k, prop_k, knn_method, memory,
+                                           max_bytes),
+        checkpointer=store, device=mesh.device,
+        output=lambda node: gmaybe(node.data, mesh.group)[:node.n],
+    )
+    return MNNResult(corrected=corrected, batch=origin, merge_info=infos)

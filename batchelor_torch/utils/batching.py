@@ -14,6 +14,9 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence, Union
 
 import numpy as np
+import torch
+
+from ..device import as_tensor
 
 __all__ = [
     "check_batch_consistency",
@@ -26,6 +29,8 @@ __all__ = [
     "subset_to_index",
     "intersect_rows",
     "DividedBatches",
+    "finish_output",
+    "take_rows",
 ]
 
 IndexLike = Union[Sequence[int], Sequence[bool], Sequence[str], np.ndarray, None]
@@ -200,6 +205,54 @@ def divide_into_batches(
         restricted=restricted if restrict_mask is not None else None,
         names=names,
     )
+
+
+def take_rows(x, idx: np.ndarray):
+    """``x[idx]`` of a host array, or of a tensor with ``idx`` moved to its
+    device."""
+    if isinstance(x, np.ndarray):
+        return x[idx]
+    return x[as_tensor(idx, x.device, torch.long)]
+
+
+def finish_output(
+    out,
+    divided: Optional[DividedBatches],
+    sizes: Sequence[int],
+    *,
+    cell_names=None,
+    gene_names=None,
+    subset_row=None,
+    correct_all: bool = False,
+):
+    """A merge result brought back to the caller's input, in place
+    (reference .rename_output, R/utils_multibatch.R:3-33).
+
+    ``divided``: the split of a single input matrix, whose cells are put
+    back in input order with the pairs re-indexed to match (None for a list
+    of batches). ``cell_names``: one input-order vector for a single matrix,
+    else one vector a batch, concatenated over the batches' ``sizes``.
+    ``gene_names`` name the rotation's rows: subset by ``subset_row`` unless
+    ``correct_all``.
+    """
+    if divided is not None:
+        reo = divided.reorder
+        out.corrected = take_rows(out.corrected, reo)
+        out.batch = out.batch[reo]
+        new_pairs = reindex_pairings([i.pairs for i in out.merge_info], reo)
+        for info, p in zip(out.merge_info, new_pairs):
+            info.pairs = p
+    if cell_names is not None:
+        if divided is not None:
+            out.cell_names = np.asarray(cell_names, dtype=object)
+        else:
+            out.cell_names = generate_cell_names(cell_names, sizes)
+    if gene_names is not None:
+        gn = np.asarray(gene_names, dtype=object)
+        if subset_row is not None and not correct_all:
+            gn = gn[np.asarray(subset_row)]
+        out.gene_names = gn
+    return out
 
 
 def restore_original_order(batch_ordering: Sequence[int], ncells_per_batch: Sequence[int]) -> np.ndarray:

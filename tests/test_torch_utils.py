@@ -196,6 +196,135 @@ def test_merge_tree_walk_matches_jax(order):
         ttr.create_tree_predefined(batches, None, [0, 0, 1, 2])
 
 
+# ``walk_merge_tree`` alone, driven by a fake engine: a node's data is the
+# global ids of its cells, a step concatenates the two sides and pairs the
+# first rows and the last rows of the two sides, and auto-merge's counts
+# come from a fixed table.
+WALK_SIZES = (3, 2, 4, 1)
+WALK_STARTS = (0, 3, 5, 9)
+# (left batches, right batches) -> MNN pairs; the first maximum, 7, is
+# (3, 0) in column-major order and (2, 1) in row-major order
+WALK_COUNTS = {((1,), (0,)): 5, ((2,), (0,)): 3, ((2,), (1,)): 7, ((3,), (0,)): 7,
+               ((3,), (1,)): 2, ((3,), (2,)): 6, ((3, 0), (1,)): 4, ((3, 0), (2,)): 7,
+               ((2, 1), (3, 0)): 9}
+
+
+class _FakeEngine:
+    def __init__(self):
+        self.steps, self.counts = [], []
+
+    def leaves(self):
+        return [ttr.MergeNode.leaf(i, np.arange(s, s + n))
+                for i, (s, n) in enumerate(zip(WALK_STARTS, WALK_SIZES))]
+
+    def step(self, mdx, left, right):
+        self.steps.append((mdx, list(left.index), list(right.index)))
+        node = ttr.MergeNode(index=list(left.index) + list(right.index),
+                             data=np.concatenate([left.data, right.data]), restrict=None,
+                             origin=np.concatenate([left.origin, right.origin]))
+        pairs = np.array([[0, 0], [left.data.shape[0] - 1, right.data.shape[0] - 1]])
+        return ttr.StepOutcome(node=node, pairs=pairs, lost_var=np.full(4, mdx / 10),
+                               batch_size=float(mdx), skipped=mdx == 1)
+
+    def count(self, a, b):
+        self.counts.append((tuple(a.index), tuple(b.index)))
+        return WALK_COUNTS[tuple(a.index), tuple(b.index)]
+
+
+class _MemoryStore:
+    """``MergeCheckpointer``'s interface, in memory."""
+
+    def __init__(self):
+        self.saved, self.completed_steps = {}, 0
+
+    def save_step(self, mdx, tree_path, chosen, node, diag):
+        self.saved[mdx] = (tree_path, chosen, node, dict(diag))
+        self.completed_steps = max(self.completed_steps, mdx + 1)
+
+    def load_step(self, mdx, device):
+        return self.saved[mdx]
+
+
+def _walk(engine, **kw):
+    return ttr.walk_merge_tree(engine.leaves(), engine.step, count=engine.count, **kw)
+
+
+def _first_last(batches):
+    """Global ids of the first and the last cell of a node of ``batches``."""
+    return WALK_STARTS[batches[0]], WALK_STARTS[batches[-1]] + WALK_SIZES[batches[-1]] - 1
+
+
+def _same_walk(a, b):
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    for x, y in zip(a[2], b[2]):
+        assert (x.left, x.right, x.batch_size, x.skipped) == (y.left, y.right, y.batch_size,
+                                                              y.skipped)
+        assert np.array_equal(x.pairs, y.pairs) and np.array_equal(x.lost_var, y.lost_var)
+
+
+def test_walk_merge_tree_follows_a_nested_order_with_name_leaves():
+    names = ["a", "b", "c", "d"]
+    engine = _FakeEngine()
+    data, labels, infos = _walk(engine, merge_order=[["c", "a"], ["d", "b"]], names=names)
+    # the right branch first, then the left, then the root
+    assert engine.steps == [(0, [3], [1]), (1, [2], [0]), (2, [2, 0], [3, 1])]
+    assert engine.counts == []
+    assert np.array_equal(data, np.arange(10))          # input order restored
+    assert list(labels) == [names[b] for b, n in enumerate(WALK_SIZES) for _ in range(n)]
+    assert [(i.left, i.right) for i in infos] == [(["d"], ["b"]), (["c"], ["a"]),
+                                                  (["c", "a"], ["d", "b"])]
+    for (_, left, right), info in zip(engine.steps, infos):
+        # the pairs index the output, so they name the sides' first and last cells
+        assert np.array_equal(data[info.pairs], np.array(list(zip(_first_last(left),
+                                                                  _first_last(right)))))
+    assert [(i.batch_size, i.skipped) for i in infos] == [(0.0, False), (1.0, True),
+                                                          (2.0, False)]
+    assert all(type(i.batch_size) is float and type(i.skipped) is bool for i in infos)
+
+
+def test_walk_merge_tree_auto_merge_takes_the_first_maximum_column_major():
+    engine = _FakeEngine()
+    data, labels, infos = _walk(engine, auto_merge=True)
+    assert engine.steps == [(0, [3], [0]), (1, [2], [1]), (2, [2, 1], [3, 0])]
+    # every pair counted once at the start, then the merged node against the rest
+    assert engine.counts == [((1,), (0,)), ((2,), (0,)), ((2,), (1,)), ((3,), (0,)),
+                             ((3,), (1,)), ((3,), (2,)), ((3, 0), (1,)), ((3, 0), (2,)),
+                             ((2, 1), (3, 0))]
+    assert np.array_equal(data, np.arange(10))
+    assert list(labels) == [b for b, n in enumerate(WALK_SIZES) for _ in range(n)]
+    for (_, left, right), info in zip(engine.steps, infos):
+        assert np.array_equal(data[info.pairs], np.array(list(zip(_first_last(left),
+                                                                  _first_last(right)))))
+
+
+@pytest.mark.parametrize("auto_merge", [False, True])
+@pytest.mark.parametrize("stored", [1, 2])
+def test_walk_merge_tree_resumes_after_stored_steps(stored, auto_merge):
+    order = None if auto_merge else [[2, 0], [3, 1]]
+    store = _MemoryStore()
+    full = _walk(_FakeEngine(), merge_order=order, auto_merge=auto_merge, checkpointer=store)
+    assert store.completed_steps == 3
+    store.completed_steps = stored
+    engine = _FakeEngine()
+    resumed = _walk(engine, merge_order=order, auto_merge=auto_merge, checkpointer=store)
+    assert [s[0] for s in engine.steps] == list(range(stored, 3))
+    _same_walk(resumed, full)
+    if auto_merge:       # the stored counts are taken up: only the new node is counted
+        assert len(engine.counts) == 2 - stored
+    else:                # a store of another tree is refused
+        store.completed_steps = stored
+        with pytest.raises(ValueError, match="merge tree"):
+            _walk(_FakeEngine(), merge_order=[[3, 1], [2, 0]], checkpointer=store)
+
+
+def test_walk_merge_tree_full_resume_counts_nothing():
+    store = _MemoryStore()
+    full = _walk(_FakeEngine(), auto_merge=True, checkpointer=store)
+    engine = _FakeEngine()
+    _same_walk(_walk(engine, auto_merge=True, checkpointer=store), full)
+    assert engine.steps == [] and engine.counts == []
+
+
 def test_telemetry_surface():
     rec = tt.MetricsRecorder()
     assert tt.get_recorder() is None
