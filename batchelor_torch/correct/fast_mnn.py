@@ -25,6 +25,7 @@ from ..io.checkpoint import MergeCheckpointer
 from ..ops.correction import (
     average_correction,
     batch_magnitude,
+    batch_var,
     center_along_batch_vector,
     orthogonalize_other,
     per_batch_var,
@@ -32,7 +33,7 @@ from ..ops.correction import (
 )
 from ..ops.cosine_norm import apply_cosine_norm, cosine_norm
 from ..ops.lowrank import LowRankOp
-from ..ops.mutual_nn import choose_k, restricted_mnn
+from ..ops.mutual_nn import choose_k, restricted_mnn, restricted_mnn_on_device
 from ..ops.pca import multi_batch_pca
 from ..utils.batching import (
     check_batch_consistency,
@@ -100,13 +101,63 @@ def _count_pairs(left: MergeNode, right: MergeNode, k, prop_k) -> int:
     return int(pairs.first.shape[0])
 
 
+def _read(value: torch.Tensor):
+    """A value of the card read on the host, counted as
+    ``fastmnn/host_reads``: the merge step's waits for the card."""
+    rec = get_recorder()
+    if rec is not None:
+        rec.add("fastmnn/host_reads")
+    return value.tolist()
+
+
+def _layout(node: MergeNode):
+    """The node's (row labels, row counts) on its data's device, which
+    ``per_batch_var`` takes: a leaf's are made there, a merged node's are its
+    sides' (set by ``_merge_step``); a node loaded from a checkpoint copies
+    its ``origin`` over once."""
+    if node.layout is None:
+        dev, n = node.data.device, node.data.shape[0]
+        if len(node.index) == 1:
+            node.layout = (torch.zeros(n, device=dev, dtype=torch.long),
+                           torch.full((1,), n, device=dev, dtype=torch.long))
+        else:
+            mapping = np.zeros(max(node.index) + 1, dtype=np.int64)
+            mapping[node.index] = np.arange(len(node.index))
+            labels = mapping[np.asarray(node.origin)]
+            node.layout = (as_tensor(labels, dev, torch.long),
+                           as_tensor(np.bincount(labels, minlength=len(node.index)), dev))
+    return node.layout
+
+
+def _lost_var(ssd: torch.Tensor, left: list, right: list, sizes: np.ndarray) -> np.ndarray:
+    """lost.var per input batch (reference R/fastMNN.R:500-501) from a
+    step's ``per_batch_var`` sums, copied to the host in the order left old,
+    right old, left new, right new; batches outside the step keep ratio 1."""
+    lo, ro, ln, rn = np.split(ssd.numpy(), np.cumsum([len(left), len(right), len(left)]))
+    var_kept = np.ones(len(sizes), dtype=np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        var_kept[left] = batch_var(ln, sizes[left]) / batch_var(lo, sizes[left])
+        var_kept[right] = batch_var(rn, sizes[right]) / batch_var(ro, sizes[right])
+    return 1.0 - var_kept
+
+
 def _merge_step(mdx: int, left: MergeNode, right: MergeNode, *, k, prop_k, ndist,
-                min_batch_skip, knn_method, nbatches) -> StepOutcome:
+                min_batch_skip, knn_method, sizes) -> StepOutcome:
     """One fastMNN merge: MNN pairs between the two sides, the batch vector
     removed from both (R/fastMNN.R:84-88), then the right side corrected by
-    tricube-smoothed per-cell vectors."""
-    left_old = per_batch_var(left.data, left.index, left.origin)
-    right_old = per_batch_var(right.data, right.index, right.origin)
+    tricube-smoothed per-cell vectors.
+
+    The step reads one value of the card, the pair counts that size the
+    pairs; the rest stays there until the walk ends: the pairs, the
+    variance sums and the batch size leave by copies that do not wait.
+    ``min_batch_skip`` reads the batch size when it is set."""
+    (l_labels, l_counts), (r_labels, r_counts) = _layout(left), _layout(right)
+
+    def sums(left_data, right_data):
+        return [per_batch_var(left_data, l_labels, l_counts),
+                per_batch_var(right_data, r_labels, r_counts)]
+
+    old = sums(left.data, right.data)
 
     # Replay earlier batch vectors on the opposite side before MNN search
     # (reference R/fastMNN.R:472-474).
@@ -115,58 +166,52 @@ def _merge_step(mdx: int, left: MergeNode, right: MergeNode, *, k, prop_k, ndist
         left_data = orthogonalize_other(left.data, left.restrict, right.extras)
 
     with trace_span("fastmnn/mnn_search", step=mdx):
-        pairs = restricted_mnn(
+        first, second = restricted_mnn_on_device(
             left_data, left.restrict, right_data, right.restrict,
-            k=k, prop_k=prop_k, method=knn_method, device=left_data.device,
+            k=k, prop_k=prop_k, method=knn_method, device=left_data.device, read=_read,
         )
-    if pairs.first.shape[0] == 0:
+    n_pairs = first.shape[0]
+    if n_pairs == 0:
         raise ValueError(
             f"no MNN pairs found at merge step {mdx}; increase k or check inputs"
         )
 
-    averaged, _second = average_correction(left_data, pairs.first,
-                                           right_data, pairs.second)
+    averaged, _second = average_correction(left_data, first, right_data, second)
     overall = averaged.mean(0)
 
     # batch.size is always reported (reference R/fastMNN.R:484-492);
-    # min.batch.skip only gates the skip decision, and the scalar only
-    # crosses to the host when that gate can fire.
+    # min.batch.skip only gates the skip decision, and the scalar is read
+    # here only when that gate can fire: else its copy lands as the walk ends.
     batch_size = batch_magnitude(averaged)
     skipped = False
     if min_batch_skip is not None and min_batch_skip > 0.0:
-        batch_size = float(batch_size)
+        batch_size = _read(batch_size)
         skipped = batch_size < min_batch_skip
+    else:
+        batch_size = batch_size.to("cpu", non_blocking=True)
 
     if not skipped:
         with trace_span("fastmnn/correct", step=mdx):
             left_data = center_along_batch_vector(left_data, overall, left.restrict)
             right_data = center_along_batch_vector(right_data, overall, right.restrict)
-            left_new = per_batch_var(left_data, left.index, left.origin)
-            right_new = per_batch_var(right_data, right.index, right.origin)
+            new = sums(left_data, right_data)
             to_add = [overall]
-            re_avg, second = average_correction(
-                left_data, pairs.first, right_data, pairs.second
-            )
+            re_avg, involved = average_correction(left_data, first, right_data, second)
             right_data = tricube_weighted_correction(
                 right_data,
                 re_avg,
-                second,
+                involved,
                 k=choose_k(k, prop_k, right_data.shape[0]),
                 ndist=ndist,
             )
     else:
         to_add = []
-        left_new = per_batch_var(left_data, left.index, left.origin)
-        right_new = per_batch_var(right_data, right.index, right.origin)
+        new = sums(left_data, right_data)
 
-    var_kept = np.ones(nbatches, dtype=np.float64)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        var_kept[left.index] = left_new / left_old
-        var_kept[right.index] = right_new / right_old
     rec = get_recorder()
     if rec is not None:
         rec.add("merge_steps")
-        rec.add("mnn_pairs", float(pairs.first.shape[0]))
+        rec.add("mnn_pairs", float(n_pairs))
         rec.add("cells_merged", float(left.data.shape[0] + right.data.shape[0]))
 
     merged = MergeNode(
@@ -177,9 +222,16 @@ def _merge_step(mdx: int, left: MergeNode, right: MergeNode, *, k, prop_k, ndist
         ),
         origin=np.concatenate([left.origin, right.origin]),
         extras=list(left.extras) + list(right.extras) + to_add,
+        layout=(torch.cat([l_labels, r_labels + len(left.index)]),
+                torch.cat([l_counts, r_counts])),
     )
-    return StepOutcome(node=merged, pairs=np.stack([pairs.first, pairs.second], axis=1),
-                       lost_var=1.0 - var_kept, batch_size=batch_size, skipped=skipped)
+    ssd = torch.cat(old + new).to("cpu", non_blocking=True)
+    return StepOutcome(
+        node=merged,
+        pairs=torch.stack([first, second], 1).to("cpu", non_blocking=True),
+        lost_var=functools.partial(_lost_var, ssd, list(left.index), list(right.index), sizes),
+        batch_size=batch_size,
+        skipped=skipped)
 
 
 def _fast_mnn_core(
@@ -201,7 +253,7 @@ def _fast_mnn_core(
         restrict = [None] * len(batches)
     step = functools.partial(_merge_step, k=k, prop_k=prop_k, ndist=ndist,
                              min_batch_skip=min_batch_skip, knn_method=knn_method,
-                             nbatches=len(batches))
+                             sizes=np.array([b.shape[0] for b in batches]))
     corrected, labels, merge_info = walk_merge_tree(
         [MergeNode.leaf(i, b, r) for i, (b, r) in enumerate(zip(batches, restrict))],
         step, merge_order=merge_order, names=batch_names, auto_merge=auto_merge,

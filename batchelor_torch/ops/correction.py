@@ -3,11 +3,12 @@
 Counterpart of ``batchelor_tpu/ops/correction.py``: the reference's
 correction helpers (R/fastMNN.R:567-658) and tricube kernel
 (R/utils_tricube.R:1-27). Functions take cells-in-rows tensors and run on
-their device; pair lists are 0-based host arrays.
+their device; pair lists are 0-based host arrays, or tensors on that
+device where the fastMNN engine keeps them there.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +20,7 @@ from .knn import query_knn
 __all__ = [
     "average_correction",
     "batch_magnitude",
+    "batch_var",
     "center_along_batch_vector",
     "orthogonalize_other",
     "pair_segment_sums",
@@ -80,17 +82,22 @@ def pair_segment_sums(l_rows: torch.Tensor, l2r: torch.Tensor, mutual: torch.Ten
 
 def average_correction(
     refdata: torch.Tensor,
-    mnn1: np.ndarray,
+    mnn1,
     curdata: torch.Tensor,
-    mnn2: np.ndarray,
-) -> Tuple[torch.Tensor, np.ndarray]:
+    mnn2,
+) -> Tuple[torch.Tensor, Any]:
     """Per-MNN correction vectors averaged per involved right cell.
 
     Mirrors .average_correction (reference R/fastMNN.R:567-580): the
     correction for right cell j is the mean over its pairs of
     (ref[i] - cur[j]). Returns (averaged, second): one row per MNN-involved
     right cell, by ascending right-cell index (R rowsum group order), and
-    those right-cell indices."""
+    those right-cell indices, the nonzero rows of the per-cell pair counts.
+    Pair lists are host arrays (``second`` comes back as one), or tensors
+    (it comes back as a tensor on the data's device). A tensor ``mnn2``
+    that carries ``involved`` (``mutual_nn.restricted_mnn_on_device``'s)
+    gives those cells, and the call waits on nothing; otherwise they are
+    read from the counts."""
     dev = curdata.device
     m1 = as_tensor(mnn1, dev, torch.long)
     m2 = as_tensor(mnn2, dev, torch.long)
@@ -100,9 +107,13 @@ def average_correction(
     sums.index_add_(0, m2, diffs)
     counts = torch.zeros(n_right, device=dev, dtype=diffs.dtype)
     counts.index_add_(0, m2, torch.ones_like(m2, dtype=diffs.dtype))
-    second = np.unique(np.asarray(mnn2))
-    sel = as_tensor(second, dev, torch.long)
-    return sums[sel] / counts[sel, None], second
+    second = getattr(mnn2, "involved", None)
+    if second is None:
+        second = torch.nonzero(counts)[:, 0]
+    averaged = sums[second] / counts[second, None]
+    if isinstance(mnn2, torch.Tensor):
+        return averaged, second
+    return averaged, second.cpu().numpy()
 
 
 def batch_magnitude(correction: torch.Tensor) -> torch.Tensor:
@@ -160,35 +171,36 @@ def orthogonalize_other(
     return data
 
 
-def per_batch_var(data: torch.Tensor, index: Sequence[int], origin: np.ndarray) -> np.ndarray:
-    """Sum of per-dimension sample variances within each original batch.
+def per_batch_var(data: torch.Tensor, labels: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Each batch's sum over dimensions of squared deviations from its
+    mean, on the data's device in fp32 (fp64 for fp64 data), with nothing
+    read back; :func:`batch_var` makes the variances on the host.
 
-    Mirrors .compute_perbatch_var (reference R/fastMNN.R:651-658), with the
-    n-1 denominator of R's colVars. Data are shifted by the global
-    per-dimension mean before squaring: the sum-of-squares minus n mu^2
-    identity cancels catastrophically in fp32 when the within-batch
-    variance is small against the batch offset. Returns host float64; the
-    whole function, its copy to the host included, is the span
-    ``correction/per_batch_var``."""
+    Mirrors .compute_perbatch_var (reference R/fastMNN.R:651-658).
+    ``labels``: each row's batch, 0-based; ``counts``: rows a batch (tensors
+    on the data's device). Data are shifted by the global per-dimension
+    mean before squaring: the sum-of-squares minus n mu^2 identity cancels
+    catastrophically in fp32 when the within-batch variance is small
+    against the batch offset. The span ``correction/per_batch_var``."""
     with trace_span("correction/per_batch_var"):
-        origin = np.asarray(origin)
-        index = list(index)
-        mapping = np.zeros(int(max(index)) + 1, dtype=np.int64)
-        mapping[np.asarray(index, dtype=np.int64)] = np.arange(len(index))
-        labels_np = mapping[origin]
-        counts_np = np.bincount(labels_np, minlength=len(index)).astype(np.float64)
         dev = data.device
         acc = torch.promote_types(data.dtype, torch.float32)
         x = data.to(acc)
         x = x - x.mean(0)[None, :]
-        labels = as_tensor(labels_np, dev, torch.long)
-        sums = torch.zeros((len(index), x.shape[1]), device=dev, dtype=acc)
+        sums = torch.zeros((counts.shape[0], x.shape[1]), device=dev, dtype=acc)
         sums = sums.index_add_(0, labels, x)
         sqs = torch.zeros_like(sums).index_add_(0, labels, x * x)
-        cnt = as_tensor(counts_np, dev, acc)
-        ssd = (sqs - sums ** 2 / torch.clamp(cnt, min=1.0)[:, None]).sum(1)
-        ssd = ssd.cpu().numpy().astype(np.float64)
-        return np.where(counts_np >= 2, ssd / np.maximum(counts_np - 1.0, 1.0), 0.0)
+        cnt = torch.clamp(counts.to(acc), min=1.0)
+        return (sqs - sums ** 2 / cnt[:, None]).sum(1)
+
+
+def batch_var(ssd: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Per-batch sums of sample variances (host float64) from
+    :func:`per_batch_var`'s sums and the batches' row counts, with the n-1
+    denominator of R's colVars; 0 for a batch of fewer than 2 rows."""
+    ssd = np.asarray(ssd).astype(np.float64)
+    counts = np.asarray(counts, dtype=np.float64)
+    return np.where(counts >= 2, ssd / np.maximum(counts - 1.0, 1.0), 0.0)
 
 
 def tricube_average(

@@ -14,7 +14,7 @@ Semantics (reference R/MNN_tree.R:113-146):
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,8 +23,8 @@ from ..device import DeviceLike, as_tensor, resolve_device
 from ..utils.telemetry import trace_span
 from .knn import query_knn
 
-__all__ = ["mutual_nn_masks", "find_mutual_nn", "restricted_mnn", "choose_k",
-           "membership_rows", "MNNPairs"]
+__all__ = ["mutual_nn_masks", "find_mutual_nn", "restricted_mnn", "restricted_mnn_on_device",
+           "choose_k", "membership_rows", "MNNPairs"]
 
 # gathered (row, k2, k1) int64 entries per membership block
 _MEMBERSHIP_BLOCK = 1 << 22
@@ -82,26 +82,77 @@ def mutual_nn_masks(left: torch.Tensor, right: torch.Tensor, k1: int, k2: int,
     return mask, nn_l2r.indices, nn_l2r.distances
 
 
-def _compact_pairs(mask: torch.Tensor, l2r: torch.Tensor):
-    """(first, second) pair lists: ``nonzero`` walks the mask row-major,
-    which is the reference emission order (left cell, then distance rank,
-    src/find_mutual_nns.cpp:30-38)."""
-    rows, cols = torch.nonzero(mask, as_tuple=True)
-    return rows, l2r[rows, cols]
+def _pairs_on_device(ld: torch.Tensor, rd: torch.Tensor, k1: int, k2: int, method: str,
+                     read: Callable, left_restrict=None, right_restrict=None):
+    """(first, second) MNN pair lists on the tensors' device, in the
+    reference's order, with ``second.involved``: the right cells that have a
+    pair, ascending (``np.unique(second)``'s order), which
+    ``correction.average_correction`` takes instead of reading the pairs.
+
+    The pair count and the count of involved right cells (those with a
+    mutual entry in ``l2r``, summed by ``index_add_``) reach the host
+    together through ``read``, the one wait; they size the compaction, which
+    waits no more. ``nonzero_static`` walks the mask row-major, the
+    reference emission order (left cell, then distance rank,
+    src/find_mutual_nns.cpp:30-38). A restriction maps the indices back to
+    full-batch rows on the card (R/MNN_tree.R:113-138). The membership test
+    is one ``mnn/pairs`` span, the counts and the compaction another."""
+    mask, l2r, _ = mutual_nn_masks(ld, rd, k1, k2, method=method)
+    with trace_span("mnn/pairs"):
+        hits = torch.zeros(rd.shape[0], device=mask.device, dtype=torch.int32)
+        hits.index_add_(0, l2r.reshape(-1), mask.reshape(-1).to(torch.int32))
+        n_pairs, n_involved = read(torch.stack([mask.sum(), (hits > 0).sum()]))
+        rows, cols = torch.nonzero_static(mask, size=n_pairs).unbind(1)
+        first, second = rows, l2r[rows, cols]
+        involved = torch.nonzero_static(hits, size=n_involved)[:, 0]
+        if left_restrict is not None:
+            first = as_tensor(left_restrict, first.device, torch.long)[first]
+        if right_restrict is not None:
+            rr = as_tensor(right_restrict, second.device, torch.long)
+            second, involved = rr[second], torch.sort(rr[involved]).values
+        second.involved = involved
+        return first, second
+
+
+def _to_host(first: torch.Tensor, second: torch.Tensor) -> MNNPairs:
+    both = torch.stack([first, second]).cpu().numpy()
+    return MNNPairs(first=both[0], second=both[1])
 
 
 def find_mutual_nn(left, right, k1: int, k2: int, method: str = "exact",
                    device: DeviceLike = None) -> MNNPairs:
-    """Materialized MNN pair lists (host numpy), in the reference's order.
-    The membership test and the compaction with its copy to the host run
-    in ``mnn/pairs`` spans, the two searches before them in ``knn/*``."""
+    """Materialized MNN pair lists (host numpy), in the reference's order:
+    the pairs of :func:`_pairs_on_device` copied to the host."""
     dev = resolve_device(device)
-    mask, l2r, _ = mutual_nn_masks(as_tensor(left, dev), as_tensor(right, dev),
-                                   k1, k2, method=method)
-    with trace_span("mnn/pairs"):
-        first, second = _compact_pairs(mask, l2r)
-        return MNNPairs(first=first.cpu().numpy().astype(np.int64),
-                        second=second.cpu().numpy().astype(np.int64))
+    return _to_host(*_pairs_on_device(as_tensor(left, dev), as_tensor(right, dev), k1, k2,
+                                      method, torch.Tensor.tolist))
+
+
+def restricted_mnn_on_device(
+    left_data,
+    left_restrict: Optional[np.ndarray],
+    right_data,
+    right_restrict: Optional[np.ndarray],
+    k: int,
+    prop_k: Optional[float] = None,
+    method: str = "exact",
+    device: DeviceLike = None,
+    read: Callable = torch.Tensor.tolist,
+):
+    """:func:`restricted_mnn` with the pairs left on the device: (first,
+    second) tensors, ``second.involved`` the involved right cells
+    ascending. ``read(t)`` gives the host the two counts of ``t``, the
+    call's one wait (the engine's step counts it)."""
+    dev = resolve_device(device)
+    ld = as_tensor(left_data, dev)
+    rd = as_tensor(right_data, dev)
+    if left_restrict is not None:
+        ld = ld[as_tensor(left_restrict, dev, torch.long)]
+    if right_restrict is not None:
+        rd = rd[as_tensor(right_restrict, dev, torch.long)]
+    k1 = choose_k(k, prop_k, ld.shape[0])
+    k2 = choose_k(k, prop_k, rd.shape[0])
+    return _pairs_on_device(ld, rd, k1, k2, method, read, left_restrict, right_restrict)
 
 
 def restricted_mnn(
@@ -117,19 +168,5 @@ def restricted_mnn(
     """MNN search on restricted subsets, mapped back to full-batch indices.
 
     Mirrors .restricted_mnn (reference R/MNN_tree.R:113-138)."""
-    dev = resolve_device(device)
-    ld = as_tensor(left_data, dev)
-    rd = as_tensor(right_data, dev)
-    if left_restrict is not None:
-        ld = ld[as_tensor(left_restrict, dev, torch.long)]
-    if right_restrict is not None:
-        rd = rd[as_tensor(right_restrict, dev, torch.long)]
-    k1 = choose_k(k, prop_k, ld.shape[0])
-    k2 = choose_k(k, prop_k, rd.shape[0])
-    pairs = find_mutual_nn(ld, rd, k1, k2, method=method, device=dev)
-    first, second = pairs.first, pairs.second
-    if left_restrict is not None:
-        first = np.asarray(left_restrict)[first]
-    if right_restrict is not None:
-        second = np.asarray(right_restrict)[second]
-    return MNNPairs(first=first, second=second)
+    return _to_host(*restricted_mnn_on_device(left_data, left_restrict, right_data,
+                                              right_restrict, k, prop_k, method, device))

@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from .batching import reindex_pairings, restore_original_order, take_rows
 from .telemetry import trace_span
@@ -61,7 +62,10 @@ class MergeNode:
       restrict: 0-based indices of cells usable for correction, or None,
       origin: per-row batch id,
       extras: method-specific payloads (fastMNN: replayed batch vectors;
-        classic MNN: the gene-space "out" matrix).
+        classic MNN: the gene-space "out" matrix),
+      layout: where an engine keeps it (fastMNN), (row labels, row counts)
+        on the data's device: each row's position of its batch in
+        ``index``, and each batch's rows; None until then.
     """
 
     index: List[int]
@@ -69,6 +73,7 @@ class MergeNode:
     restrict: Optional[np.ndarray]
     origin: np.ndarray
     extras: list = field(default_factory=list)
+    layout: Any = None
 
     @staticmethod
     def leaf(i: int, data, restrict=None, extras=None) -> "MergeNode":
@@ -226,10 +231,15 @@ class StepOutcome:
     node: the merged node, the left side's rows then the right side's;
     pairs: (P, 2) MNN pairs, each side's rows counted from its first row;
     lost_var: per input batch;
-    batch_size: a float, or a device scalar read once the walk ends;
+    batch_size: a float;
     skipped: whether ``min_batch_skip`` left the step uncorrected;
     record: the node as the checkpoint store keeps it, when that is not
       ``node`` itself.
+
+    ``pairs`` and ``batch_size`` may also be tensors, and ``lost_var`` a
+    function that makes it: the walk reads them when it ends, after one
+    wait for the card, so a step may leave its copies to the host in
+    flight (``.to("cpu", non_blocking=True)``).
     """
 
     node: Any
@@ -238,6 +248,20 @@ class StepOutcome:
     batch_size: Any = np.nan
     skipped: bool = False
     record: Optional[MergeNode] = None
+
+
+def _land(infos: List[MergeStepInfo], device) -> None:
+    """The steps' outcomes as host values: one wait for the card, when some
+    step left its copies in flight, then each read."""
+    if device is not None and torch.device(device).type == "cuda" and any(
+            callable(i.lost_var) or isinstance(i.pairs, torch.Tensor) for i in infos):
+        torch.cuda.synchronize(device)
+    for info in infos:
+        if callable(info.lost_var):
+            info.lost_var = info.lost_var()
+        info.pairs = np.asarray(info.pairs)
+        info.batch_size = float(info.batch_size)
+        info.skipped = bool(info.skipped)
 
 
 def _pick_best_merge(stats: np.ndarray):
@@ -356,6 +380,7 @@ def walk_merge_tree(
                 tree = update_tree(tree, path, merged)
 
             if not replay and checkpointer is not None:
+                _land([info], device)
                 checkpointer.save_step(
                     mdx, path, None if chosen is None else list(chosen),
                     merged if out.record is None else out.record,
@@ -364,8 +389,8 @@ def walk_merge_tree(
                         "lost_var": info.lost_var,
                         "left_set": info.left,
                         "right_set": info.right,
-                        "batch_size": float(info.batch_size),
-                        "skipped": bool(info.skipped),
+                        "batch_size": info.batch_size,
+                        "skipped": info.skipped,
                         "stats": stats,
                     },
                 )
@@ -374,6 +399,7 @@ def walk_merge_tree(
 
     final = remainders[0] if auto_merge else tree
     data = final.data if output is None else output(final)
+    _land(infos, device)
     order, origin = list(final.index), np.asarray(final.origin)
 
     # Re-index pairs into final concatenated positions (reference
@@ -387,8 +413,6 @@ def walk_merge_tree(
         p[:, 0] += int(block_start[info.left[0]])
         p[:, 1] += int(block_start[info.right[0]])
         info.pairs = p
-        info.batch_size = float(info.batch_size)
-        info.skipped = bool(info.skipped)
 
     # Restore input batch order (reference R/fastMNN.R:540-547).
     if any(order[i] > order[i + 1] for i in range(len(order) - 1)):

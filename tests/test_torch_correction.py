@@ -67,11 +67,15 @@ def test_per_batch_var_matches_jax(dtype, rng):
     origin = np.repeat([4, 1, 2], [20, 30, 20])
     index = [1, 2, 4]
     j = jc.per_batch_var(jnp.asarray(data), index, origin)
-    t = tc.per_batch_var(T(data), index, origin)
+    labels = np.searchsorted(index, origin)
+    counts = np.bincount(labels, minlength=len(index))
+    ssd = tc.per_batch_var(T(data), torch.from_numpy(labels), torch.from_numpy(counts))
+    t = tc.batch_var(ssd.numpy(), counts)
     assert t.dtype == np.float64
     atol = 1e-10 if dtype == np.float64 else 1e-6
     assert np.allclose(j, t, atol=atol, rtol=0)
-    single = tc.per_batch_var(T(data[:1]), [4], origin[:1])
+    one = torch.ones(1, dtype=torch.long)
+    single = tc.batch_var(tc.per_batch_var(T(data[:1]), one - 1, one).numpy(), [1])
     assert single.tolist() == [0.0]
 
 

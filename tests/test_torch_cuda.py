@@ -686,6 +686,65 @@ def _atlas_pcs(card, sizes=(12_000, 12_000, 4_000), d=50):
             for b, n in enumerate(sizes)]
 
 
+# The walk's end waits once for the steps' copies to the host to land.
+_WALK_END_SYNCS = 1
+
+
+@pytest.mark.parametrize("method,n", [("exact", 4_000), ("auto", 12_000)])
+def test_reduced_mnn_waits_once_a_merge_step(method, n, card):
+    """After a warm call, ``reduced_mnn`` on 4 fp32 batches makes one
+    synchronizing operation a merge step (the read of its pair counts) and
+    at most ``_WALK_END_SYNCS`` at the walk's end, none at the entry.
+
+    Against the CPU. In fp32 a row whose k-th neighbour lies within
+    rounding of the next may take either on either side (K5 against
+    ``_knn_tiled``, as ``_assert_knn_matches_tiled`` allows), and the next
+    steps carry that on; so ``"exact"`` is held to the CPU in fp64, where
+    both sides run the tiled search: the same pairs in every step, rows
+    within 1e-8 of the largest. ``"auto"`` takes the bf16 two-pass search in
+    every MNN search at these sizes, which runs only in fp32; the CPU runs
+    it as ``"bf16"`` with the kernels' plain versions, whose sub-chunk
+    maxima agree within 2^-20: the pairs agree but for 1 in 1,000, and a
+    changed pair moves its tricube neighbourhood, so rows agree within
+    1e-4 of the largest but for 1 in 100."""
+    import warnings
+
+    import batchelor_torch as bt
+    from batchelor_torch.ops.knn import AUTO_MIN_SCORES
+
+    rng = np.random.default_rng(17)
+    mats = [(rng.normal(size=(n, 50)) + 0.7 * b).astype(np.float32) for b in range(4)]
+    batches = [torch.from_numpy(m).cuda() for m in mats]
+    assert (n * n > AUTO_MIN_SCORES) == (method == "auto")
+    bt.reduced_mnn(batches, k=20, knn_method=method)          # warm: builds the kernels
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            gpu = bt.reduced_mnn(batches, k=20, knn_method=method)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    assert len(syncs) <= len(batches) - 1 + _WALK_END_SYNCS, [str(w.message) for w in syncs]
+
+    if method == "exact":
+        gpu = bt.reduced_mnn([b.double() for b in batches], k=20, knn_method=method)
+        cpu = bt.reduced_mnn([m.astype(np.float64) for m in mats], k=20, device="cpu")
+        for a, b in zip(gpu.merge_info, cpu.merge_info, strict=True):
+            assert np.array_equal(a.pairs, b.pairs)
+        want = cpu.corrected
+        assert float((gpu.corrected.cpu() - want).abs().max()) <= 1e-8 * float(want.abs().max())
+        return
+    cpu = bt.reduced_mnn(mats, k=20, knn_method="bf16", device="cpu")
+    for a, b in zip(gpu.merge_info, cpu.merge_info, strict=True):
+        mine, theirs = set(map(tuple, a.pairs.tolist())), set(map(tuple, b.pairs.tolist()))
+        assert len(mine ^ theirs) <= 1e-3 * len(theirs)
+    scale = float(cpu.corrected.abs().max())
+    off = (gpu.corrected.cpu() - cpu.corrected).abs().amax(1) > 1e-4 * scale
+    assert float(off.double().mean()) <= 1e-2
+
+
 def test_two_pass_counters_of_an_auto_search(card):
     import batchelor_torch as bt
     from batchelor_torch.ops.knn import AUTO_MIN_SCORES
