@@ -15,13 +15,17 @@ what that cannot absorb, a different subspace, the rows' numbers read.
   * ``rows_err_max``, ``rows_err_p50``: largest and median distance of a
     corrected row from the reference's, over the RMS spread of the
     reference's corrected rows around their mean.
+  * ``batch_rows_err_p50``: the same distance's median over each batch's
+    rows, at the worst batch. The first batch is only centred, never
+    corrected; where it holds half of the rows, ``rows_err_p50`` reads it
+    alone, and this reads the batches that the merge corrects.
   * ``own_rows_err_p50``: ``rows_err_p50`` against the reference's own
     merge, which chose every step's pairs itself (``own_readings``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,10 +45,11 @@ def _jaccard(a: np.ndarray, b: np.ndarray, n: int) -> float:
     return inter / union if union else 1.0
 
 
-def readings(out: dict, ref: dict) -> Dict[str, float]:
+def readings(out: dict, ref: dict, sizes: Optional[Sequence[int]] = None) -> Dict[str, float]:
     """Each number of the program's output ``out`` against ``ref``. Both
     hold ``corrected`` and ``pairs``; with ``rotation`` and ``centers`` the
-    PCA's numbers are read too."""
+    PCA's numbers are read too, and with ``sizes``, the batches' rows in
+    the output's order, ``batch_rows_err_p50``."""
     dev = ref["corrected"].device
     got = out["corrected"].to(dev, torch.float64)
     want = ref["corrected"].to(torch.float64)
@@ -65,6 +70,10 @@ def readings(out: dict, ref: dict) -> Dict[str, float]:
     err = torch.sqrt(((got - want) ** 2).sum(1)) / spread
     res["rows_err_max"] = float(err.max())
     res["rows_err_p50"] = float(err.median())
+    if sizes is not None:
+        ends = np.cumsum(sizes)
+        res["batch_rows_err_p50"] = max(float(err[lo:hi].median())
+                                        for lo, hi in zip(ends - sizes, ends))
     return res
 
 

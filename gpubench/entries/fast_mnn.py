@@ -12,7 +12,8 @@ traffic selects in bf16); the faults are ``gpubench/faults.py``'s.
 from gpubench import generator, harness
 from gpubench.faults import FAULTS, planted  # noqa: F401
 
-READINGS = ("centers_err", "pairs_miss", "rows_err_p50", "rows_err_max", "own_rows_err_p50")
+READINGS = ("centers_err", "pairs_miss", "rows_err_p50", "batch_rows_err_p50", "rows_err_max",
+            "own_rows_err_p50")
 
 output = harness.program_output
 judge = harness.judge_outputs

@@ -10,7 +10,12 @@ A cell ``<config>.<traffic>`` of ``BENCHMARK.json`` reads
 ``"entry"``, the program's function that the cell calls. The entry module
 makes the call's inputs from the seed, says what is judged of a call and
 judges it (``make_inputs``, ``output``, ``judge``, ``READINGS``; optionally
-``FAULTS`` with ``planted`` and ``control``, which ``readings.py`` reads).
+``bind``, which makes the function a call runs where the program's entry
+is not called as ``entry(inputs, **args, device=...)``, ``output_readings``,
+each output's readings apart, and ``FAULTS`` with ``planted`` and
+``control``, which ``readings.py`` reads). The entry of a cell on several
+cards judges on every rank: ``judge(cell, outputs, inputs, world)``, with
+the outputs on rank 0 alone (``judge_outputs``).
 A per-layer metric ``<name>`` is read by ``gpubench/metrics/<name>.py``. A
 later cell, entry or metric adds those files and entries, and no code.
 """
@@ -30,8 +35,10 @@ import torch
 
 from gpubench import compare, reference
 
-__all__ = ["ROOT", "HERE", "Cell", "load_cell", "entry_module", "call_args", "program_output",
-           "reference_outputs", "control_selection", "judge_outputs", "metric_reader"]
+__all__ = ["ROOT", "HERE", "Cell", "load_cell", "entry_module", "call_args", "entry_call",
+           "program_output",
+           "reference_outputs", "control_selection", "output_readings", "judge_outputs",
+           "metric_reader"]
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -47,6 +54,7 @@ class Cell:
     end_to_end: List[dict]
     per_layer: List[dict]
     entry: ModuleType
+    root: Path = ROOT
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -76,7 +84,7 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
         name=name, chips=int(w["chips"]), config=config, traffic=traffic, limits=limits,
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
-        entry=entry,
+        entry=entry, root=root,
     )
 
 
@@ -107,6 +115,19 @@ def call_args(cell: Cell) -> dict:
     return out
 
 
+def entry_call(cell: Cell, bt, device):
+    """The function that one call of the cell runs on its inputs: the
+    entry module's ``bind(cell, bt, device)`` where it has one (made once,
+    at set-up), else the program's ``entry`` with the traffic's arguments
+    on ``device``."""
+    bind = getattr(cell.entry, "bind", None)
+    if bind is not None:
+        return bind(cell, bt, device)
+    entry = getattr(bt, cell.traffic["entry"])
+    kwargs = dict(call_args(cell), device=device)
+    return lambda inputs: entry(inputs, **kwargs)
+
+
 def program_output(result) -> dict:
     """What is judged of one call: the corrected coordinates, each merge
     step's pairs and, from gene space, the PCA's rotation and centers."""
@@ -119,14 +140,14 @@ def program_output(result) -> dict:
 
 
 def reference_outputs(cell: Cell, inputs, follows: Sequence, precision: str = "fp64",
-                      selection: str = "exact") -> List[dict]:
+                      selection: str = "exact", share=None) -> List[dict]:
     """The plain reference (or, at a lower precision, the control) on the
     same inputs and with the same sizes as the program's call: the PCA
     once, then one merge for each entry of ``follows``, a judged output's
     pair lists to follow (``reference.merge``) or None for the reference's
-    own."""
+    own. ``share``: the ranks that compute it together (``reference.Arith``)."""
     args = call_args(cell)
-    ar = reference.Arith(precision)
+    ar = reference.Arith(precision, share)
     with torch.no_grad():
         if cell.traffic["input"] == "genes":
             pcs, rotation, centers = reference.pca(ar, inputs, int(args["d"]))
@@ -134,9 +155,11 @@ def reference_outputs(cell: Cell, inputs, follows: Sequence, precision: str = "f
         else:
             pcs, pca_out = [ar.cast(b) for b in inputs], {}
         outs = []
+        first = None                # the first step's own pairs, the same in every merge
         for follow in follows:
             corrected, pairs = reference.merge(ar, pcs, int(args["k"]), float(args["ndist"]),
-                                               selection, follow)
+                                               selection, follow, first)
+            first = pairs[0]
             outs.append({"corrected": corrected, "pairs": pairs, **pca_out})
     return outs
 
@@ -153,21 +176,42 @@ def control_selection(cell: Cell) -> str:
     return "fp8" if cell.traffic["selection"] == "bf16" else "exact"
 
 
-def judge_outputs(cell: Cell, outputs: Dict[str, dict], inputs):
-    """(correct, worst readings, checks, number of outputs that failed):
-    each output against the reference that follows its pairs, computed
-    once for each distinct set of pairs, and against the reference's own
-    merge, which no output's pairs steer."""
-    keys = {name: _pairs_key(out["pairs"]) for name, out in outputs.items()}
-    distinct = {}
-    for name, key in keys.items():
-        distinct.setdefault(key, outputs[name]["pairs"])
-    own, *followed = reference_outputs(cell, inputs, [None] + list(distinct.values()))
+def output_readings(cell: Cell, outputs: Optional[Dict[str, dict]], inputs,
+                    world=None) -> Optional[Dict[str, Dict[str, float]]]:
+    """Each output's readings: against the reference that follows its
+    pairs, computed once for each distinct set of pairs, and against the
+    reference's own merge, which no output's pairs steer.
+
+    On a ``world`` of several ranks every rank calls this with the same
+    inputs, rank 0 with the outputs and the others with None: rank 0's
+    pairs go to every rank, the reference's searches are shared out over
+    the ranks' cards, and rank 0 alone gets the readings."""
+    distinct, keys = {}, {}
+    for name, out in (outputs or {}).items():
+        keys[name] = _pairs_key(out["pairs"])
+        distinct.setdefault(keys[name], out["pairs"])
+    follows = list(distinct.values())
+    if world is not None and world.size > 1:
+        follows = world.gather(follows)[0]
+    own, *followed = reference_outputs(cell, inputs, [None] + follows, share=world)
+    if outputs is None:
+        return None
     refs = dict(zip(distinct, followed))
+    sizes = [int(b.shape[0]) for b in inputs]
+    return {name: {**compare.readings(out, refs[keys[name]], sizes),
+                   **compare.own_readings(out, own)}
+            for name, out in outputs.items()}
+
+
+def judge_outputs(cell: Cell, outputs: Optional[Dict[str, dict]], inputs, world=None):
+    """(correct, worst readings, checks, number of outputs that failed)
+    of ``output_readings``; None on a rank other than 0."""
+    each = output_readings(cell, outputs, inputs, world)
+    if each is None:
+        return None
     worst: Dict[str, float] = {}
     failed = 0
-    for name, out in outputs.items():
-        values = {**compare.readings(out, refs[keys[name]]), **compare.own_readings(out, own)}
+    for values in each.values():
         ok, _ = compare.judge(values, cell.limits)
         failed += not ok
         for k, v in values.items():

@@ -45,13 +45,20 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 class Arith:
-    """The products and the eigensolver of one precision."""
+    """The products and the eigensolver of one precision.
 
-    def __init__(self, precision: str):
+    ``share``: where several processes compute the same reference, one a
+    card, an object with their ``rank``, ``size`` and ``gather(obj)``
+    (every rank's ``obj`` in rank order). Each kNN search then takes a
+    contiguous share of its query blocks and the ranks gather the rows;
+    every block is computed as it is alone, so the result is the same."""
+
+    def __init__(self, precision: str, share=None):
         if precision not in ("fp64", "tf32"):
             raise ValueError(f"unknown precision {precision!r}")
         self.dtype = torch.float64 if precision == "fp64" else torch.float32
         self.tf32 = precision == "tf32"
+        self.share = share if share is not None and share.size > 1 else None
 
     def cast(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.dtype)
@@ -93,7 +100,11 @@ def knn(ar: Arith, query: torch.Tensor, data: torch.Tensor, k: int,
     step = _rows_per_block(data.shape[0])
     if selection == "fp8":
         step = min(step, _rows_per_block(k * _SUB * data.shape[1]))
-    for q0 in range(0, query.shape[0], step):
+    starts = range(0, query.shape[0], step)
+    if ar.share is not None:
+        n, r = len(starts), ar.share.rank
+        starts = starts[n * r // ar.share.size:n * (r + 1) // ar.share.size]
+    for q0 in starts:
         q = query[q0:q0 + step]
         if selection == "exact":
             sq = qn[q0:q0 + step, None] + dn[None, :] - 2.0 * ar.mm(q, data.T)
@@ -115,7 +126,11 @@ def knn(ar: Arith, query: torch.Tensor, data: torch.Tensor, k: int,
             idx = cand.gather(1, pos)
         out_i.append(idx)
         out_d.append(torch.sqrt(torch.clamp(dist, min=0.0)))
-    return torch.cat(out_i), torch.cat(out_d)
+    if ar.share is None:
+        return torch.cat(out_i), torch.cat(out_d)
+    mine = [torch.cat(out).cpu() if out else None for out in (out_i, out_d)]
+    every = [part for part in ar.share.gather(mine) if part[0] is not None]
+    return tuple(torch.cat([part[j] for part in every]).to(query.device) for j in range(2))
 
 
 def _mutual_pairs(ar, left, right, k, selection):
@@ -166,7 +181,7 @@ def _tricube(ar, right, correction, involved, k, ndist):
 
 
 def merge(ar: Arith, pcs: Sequence[torch.Tensor], k: int, ndist: float,
-          selection: str = "exact", follow=None):
+          selection: str = "exact", follow=None, first_pairs=None):
     """The merge in input order. Returns (corrected (N, d), each step's own
     MNN pairs with indices into the output rows).
 
@@ -176,6 +191,11 @@ def merge(ar: Arith, pcs: Sequence[torch.Tensor], k: int, ndist: float,
     followed ones, so that its state keeps to the judged merge's: a pair
     that a near-tie decides differently in an early step does not carry
     into every later step, and each step's pairs are judged on their own.
+
+    ``first_pairs``: the first step's own pairs as an earlier merge of the
+    same ``pcs`` at the same precision and selection returned them. The
+    first step's state is the input in every merge, so its own pairs are
+    the same, and they are taken instead of searched for again.
     """
     left = pcs[0]
     extras: List[torch.Tensor] = []
@@ -184,7 +204,11 @@ def merge(ar: Arith, pcs: Sequence[torch.Tensor], k: int, ndist: float,
         for vec in extras:
             right = _center_along(ar, right, vec)
         n_left = left.shape[0]
-        first, second = _mutual_pairs(ar, left, right, k, selection)
+        if step == 0 and first_pairs is not None:
+            own = np.asarray(first_pairs, dtype=np.int64)
+            first, second = own[:, 0], own[:, 1] - n_left
+        else:
+            first, second = _mutual_pairs(ar, left, right, k, selection)
         pairs.append(np.stack([first, second + n_left], axis=1))
         if follow is not None:
             given = np.asarray(follow[step], dtype=np.int64)

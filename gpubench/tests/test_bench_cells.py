@@ -11,13 +11,14 @@ BENCH = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
-FASTMNN_READINGS = {"centers_err", "pairs_miss", "rows_err_p50", "rows_err_max", "own_rows_err_p50"}
+FASTMNN_READINGS = {"centers_err", "pairs_miss", "rows_err_p50", "batch_rows_err_p50", "rows_err_max",
+                    "own_rows_err_p50"}
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_cell_loads_with_its_files(cell):
     c = harness.load_cell(cell)
-    assert c.chips == 1
+    assert c.chips in (1, 4)
     assert c.config["name"] == cell.split(".")[0]
     assert sum(c.config["batches"]) > 0
     # the traffic's entry finds its module by name
@@ -32,7 +33,7 @@ def test_cell_loads_with_its_files(cell):
     # each quantity under its own name or a "<quantity>.<part>" of it
     assert {m["name"].split(".")[0] for m in c.end_to_end} >= {"cells_per_s", "peak_mem_gib", "setup_s"}
     assert c.per_layer
-    if c.traffic["entry"] in ("fast_mnn", "reduced_mnn"):
+    if c.traffic["entry"] in ("fast_mnn", "reduced_mnn", "distributed_fast_mnn"):
         assert c.config["d"] == c.config["generator"]["rank"]
         assert c.traffic["input"] in ("genes", "pcs")
         args = harness.call_args(c)

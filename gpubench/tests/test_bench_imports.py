@@ -18,11 +18,12 @@ def _top_level_after(code: str) -> set:
 def test_harness_loads_no_jax():
     metrics = "; ".join(f"harness.metric_reader({m!r})" for m in
                         ("device_idle_pct", "launches_per_call", "pca_device_ms",
-                         "mnn_search_device_ms", "mnn_search_roofline", "correct_device_ms"))
+                         "mnn_search_device_ms", "mnn_search_roofline", "correct_device_ms",
+                         "collective_device_ms", "driver_step_device_ms"))
     code = ("import sys; sys.path.insert(0, '.')\n"
             "import batchelor_torch\n"
-            "from gpubench import run, readings, harness, faults, trace, work, compare, generator\n"
-            "for e in ('fast_mnn', 'reduced_mnn'): harness.entry_module(e)\n"
+            "from gpubench import run, readings, harness, faults, trace, work, compare, generator, ranks\n"
+            "for e in ('fast_mnn', 'reduced_mnn', 'distributed_fast_mnn'): harness.entry_module(e)\n"
             + metrics)
     loaded = _top_level_after(code)
     assert "batchelor_torch" in loaded

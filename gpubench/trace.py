@@ -109,9 +109,13 @@ def _gap_labels(host, ranges: _Ranges, gaps: List[Tuple[float, float]]) -> Dict[
     return dict(out)
 
 
-def read_chrome_trace(path: str, calls: int, prefix: str = "fastmnn/") -> Trace:
+RANGE_PREFIXES = ("fastmnn/", "driver/")
+
+
+def read_chrome_trace(path: str, calls: int, prefix: Tuple[str, ...] = RANGE_PREFIXES) -> Trace:
     """Reduce the Chrome trace of ``calls`` calls, one profiler step each;
-    ranges are the annotations named ``prefix...``."""
+    ranges are the annotations whose names start with one of ``prefix``
+    (fastMNN's layers and the distributed driver's step and pair gather)."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     launches = {}
